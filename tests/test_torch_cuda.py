@@ -1,0 +1,100 @@
+"""The hand-written CUDA kernel against the plain torch engine, on a card.
+
+Needs an NVIDIA GPU with nvcc (sm_90a); every test skips where
+torch.cuda.is_available() is false. This file imports no JAX: the machine
+with the card has none. Run there with
+``python -m pytest tests/test_torch_cuda.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import scrooge_tpu_torch as st
+from scrooge_tpu_torch.ops import _cuda, compact, engine, pack
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _batch(seed, B, T, P, rate=0.08):
+    rng = np.random.default_rng(seed)
+    text = rng.integers(0, 4, (B, T), dtype=np.uint8)
+    noise = rng.integers(0, 4, (B, P), dtype=np.uint8)
+    pattern = np.where(rng.random((B, P)) < rate, noise,
+                       text[:, :P]).astype(np.uint8)
+    tlen = rng.integers(1, T + 1, B).astype(np.int32)
+    plen = rng.integers(0, P + 1, B).astype(np.int32)
+    return text, tlen, pattern, plen
+
+
+def _same(a, b):
+    for x, y in zip(a[:2] + a[3:], b[:2] + b[3:]):
+        assert torch.equal(x.cpu(), y.cpu())
+    cap = int(a.counts.sum(0).max().item()) + 1
+    ca, ta = compact.compact_entries(a.entries, a.counts, cap)
+    cb, tb = compact.compact_entries(b.entries, b.counts, cap)
+    assert torch.equal(ta.cpu(), tb.cpu()) and torch.equal(ca.cpu(),
+                                                            cb.cpu())
+
+
+@pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33), (16, 16, 9),
+                                 (64, 64, 2)])
+def test_kernel_matches_plain(cuda, wko):
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O)
+    text, tlen, pattern, plen = _batch(W + O, 300, 400, 360)
+    args = (pack.pack_2bit(torch.from_numpy(text)).to(cuda),
+            torch.from_numpy(tlen).to(cuda),
+            pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
+            torch.from_numpy(plen).to(cuda))
+    maxw = cfg.max_windows(360)
+    before = _cuda.GENASM_WINDOWS.launches
+    got = engine.align_batch(cfg, maxw, *args)
+    assert _cuda.GENASM_WINDOWS.launches == before + 1
+    B, Tw = args[0].shape
+    base = torch.arange(B, dtype=torch.int64, device=cuda) * (Tw * 16)
+    want = engine.align_windows_plain(cfg, maxw, args[0], base, *args[1:])
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+def test_kernel_mapped_matches_plain(cuda):
+    cfg = st.AlignConfig()
+    rng = np.random.default_rng(2)
+    G, B, P = 20000, 256, 700
+    genome = rng.integers(0, 4, G, dtype=np.uint8)
+    starts = rng.integers(0, G, B).astype(np.int64)
+    pattern = np.where(rng.random((B, P)) < 0.05,
+                       rng.integers(0, 4, (B, P), dtype=np.uint8),
+                       genome[np.minimum(starts[:, None] + np.arange(P),
+                                         G - 1)]).astype(np.uint8)
+    plen = rng.integers(0, P + 1, B).astype(np.int32)
+    maxw = -(-cfg.max_windows(P) // 32) * 32
+    tlen = np.minimum(G - starts, maxw * cfg.tb_limit + cfg.W).astype(
+        np.int32)
+    args = (pack.pack_2bit(torch.from_numpy(genome)).to(cuda),
+            torch.from_numpy(starts).to(cuda),
+            torch.from_numpy(tlen).to(cuda),
+            pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
+            torch.from_numpy(plen).to(cuda))
+    got = engine.align_windows(cfg, maxw, *args)
+    want = engine.align_windows_plain(cfg, maxw, *args)
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+def test_api_on_cuda(cuda):
+    a = st.align_pairs(["AAAACCCCGGGGTTTT"], ["CCCCGGGGTTTTAAAA"],
+                       device=cuda)
+    assert (a[0].edit_distance, a[0].cigar) == (8, "4D12=4I")
+    texts = ["ACGTTGCA" * 40, "GATTACA" * 30, "A" * 50]
+    queries = [texts[0][3:300], texts[1][:150] + "GG", ""]
+    on_card = st.align_pairs(texts, queries, device=cuda)
+    assert on_card == st.align_pairs(texts, queries, device="cpu")

@@ -1,0 +1,170 @@
+"""The port's plain window engine against the JAX package's engines.
+
+Same numpy inputs from a seed through engine_xla (and once through the
+Pallas kernel in interpret mode, as tests/test_engine_pallas.py runs it)
+and through scrooge_tpu_torch's plain torch engine on the CPU. Every
+output is an integer, so every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from scrooge_tpu.config import AlignConfig  # noqa: E402
+from scrooge_tpu.ops import engine_pallas, engine_xla  # noqa: E402
+from scrooge_tpu_torch.ops import compact, engine, pack  # noqa: E402
+
+
+def _mutate(rng, seq, rate):
+    out = []
+    for c in seq:
+        r = rng.random()
+        if r < rate / 3:
+            continue  # deletion
+        if r < 2 * rate / 3:
+            out.append(int(rng.integers(0, 4)))  # substitution
+            continue
+        if r < rate:
+            out.append(int(rng.integers(0, 4)))  # insertion
+        out.append(int(c))
+    return out
+
+
+def _batch(seed, B, T, P, rate=0.08):
+    """Texts (B, T) and mutated patterns (B, P) as 2-bit codes, with
+    ragged lengths, an empty read and a text that runs out first."""
+    rng = np.random.default_rng(seed)
+    text = rng.integers(0, 4, (B, T), dtype=np.uint8)
+    pattern = np.zeros((B, P), np.uint8)
+    tlen = rng.integers(1, T + 1, B).astype(np.int32)
+    plen = np.zeros(B, np.int32)
+    for b in range(B):
+        q = _mutate(rng, text[b, : tlen[b]], rate)[: int(rng.integers(0, P + 1))]
+        pattern[b, : len(q)] = q
+        plen[b] = len(q)
+    plen[0] = 0
+    tlen[1], plen[1] = 5, P  # text exhausted before the read
+    return text, tlen, pattern, plen
+
+
+def _port(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _assert_same(rx, rt):
+    """ed, failure mask, counts and compacted runs."""
+    np.testing.assert_array_equal(rt.edit_distance.numpy(),
+                                  np.asarray(rx.edit_distance))
+    np.testing.assert_array_equal(rt.failed.numpy() != 0,
+                                  np.asarray(rx.failed) != 0)
+    np.testing.assert_array_equal(rt.counts.numpy(), np.asarray(rx.counts))
+    cap = int(rt.counts.sum(0).max()) + 2
+    ct, tt = compact.compact_entries(rt.entries, rt.counts, cap)
+    cx, tx = engine_xla.compact_entries(rx.entries, rx.counts, cap)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tx))
+    np.testing.assert_array_equal(ct.numpy().view(np.uint16), np.asarray(cx))
+
+
+def test_pack_2bit_matches_jax_packing():
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 4, (7, 53), dtype=np.uint8)
+    got = pack.pack_2bit(_port(codes)).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, engine_pallas.pack_2bit_host(codes))
+
+
+@pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33), (16, 16, 9)])
+def test_plain_engine_matches_xla_engine(wko):
+    W, K, O = wko
+    cfg = AlignConfig(W=W, K=K, O=O)
+    text, tlen, pattern, plen = _batch(11 + W, 128, 160, 128)
+    maxw = cfg.max_windows(128)
+    rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
+    rt = engine.align_batch(cfg, maxw, pack.pack_2bit(_port(text)),
+                            _port(tlen), pack.pack_2bit(_port(pattern)),
+                            _port(plen))
+    assert int(rt.counts.sum()) > 0
+    _assert_same(rx, rt)
+
+
+def test_plain_engine_mapped_matches_xla_engine():
+    cfg = AlignConfig(W=64, K=64, O=33)
+    rng = np.random.default_rng(21)
+    G, B, P = 4000, 128, 200
+    genome = rng.integers(0, 4, G, dtype=np.uint8)
+    starts = rng.integers(0, G - P, B).astype(np.int64)
+    starts[:4] = [0, G - 40, G - 1, G]  # genome ends inside the window
+    pattern = np.zeros((B, P), np.uint8)
+    plen = rng.integers(1, P + 1, B).astype(np.int32)
+    for b in range(B):
+        q = _mutate(rng, genome[starts[b] : starts[b] + plen[b]], 0.06)
+        q = q[: plen[b]]
+        pattern[b, : len(q)] = q
+        plen[b] = len(q)
+    maxw = -(-cfg.max_windows(P) // 32) * 32
+    tlen = np.minimum(G - starts, maxw * cfg.tb_limit + cfg.W).astype(
+        np.int32)
+    rx = engine_xla.align_batch_mapped(cfg, maxw, genome,
+                                       starts.astype(np.uint32), tlen,
+                                       pattern, plen)
+    rt = engine.align_windows(cfg, maxw, pack.pack_2bit(_port(genome)),
+                              _port(starts), _port(tlen),
+                              pack.pack_2bit(_port(pattern)), _port(plen))
+    _assert_same(rx, rt)
+
+
+def test_plain_engine_matches_pallas_interpret():
+    """The Pallas kernel (interpret mode off the TPU), compared on lanes
+    that neither engine fails."""
+    cfg = AlignConfig(W=32, K=32, O=17)
+    B, T, P = 128, 64, 48
+    rng = np.random.default_rng(5)
+    text = rng.integers(0, 4, (B, T), dtype=np.uint8)
+    pattern = np.where(rng.random((B, P)) < 0.1,
+                       rng.integers(0, 4, (B, P), dtype=np.uint8),
+                       text[:, :P]).astype(np.uint8)
+    tlen = rng.integers(1, T + 1, B).astype(np.int32)
+    plen = rng.integers(0, P + 1, B).astype(np.int32)
+    maxw = cfg.max_windows(P)
+    tw, pw = (engine_pallas.pack_2bit_host(text),
+              engine_pallas.pack_2bit_host(pattern))
+    rp = engine_pallas.align_batch(cfg, maxw, 1, 2, tw, tlen, pw, plen)
+    rt = engine.align_batch(cfg, maxw, pack.to_device(tw, "cpu"),
+                            _port(tlen), pack.to_device(pw, "cpu"),
+                            _port(plen))
+    ok = (np.asarray(rp.failed) == 0) & (rt.failed.numpy() == 0)
+    assert ok.sum() > B // 2
+    np.testing.assert_array_equal(rt.edit_distance.numpy()[ok],
+                                  np.asarray(rp.edit_distance)[ok])
+    np.testing.assert_array_equal(rt.counts.numpy()[:, ok],
+                                  np.asarray(rp.counts)[:maxw, ok])
+    cap = int(rt.counts.sum(0).max()) + 2
+    cp, tp = engine_pallas.compact_entries_sparse(rp.entries, rp.counts, cap)
+    ct, tt = compact.compact_entries(rt.entries, rt.counts, cap)
+    np.testing.assert_array_equal(tt.numpy()[ok], np.asarray(tp)[ok])
+    np.testing.assert_array_equal(ct.numpy().view(np.uint16)[:, ok],
+                                  np.asarray(cp)[:, ok])
+
+
+def test_unalignable_window_fails_lane():
+    """A window with no alignment within K sets FAIL_TB, like engine_xla's
+    failure mask, and emits nothing for that lane."""
+    cfg = AlignConfig(W=32, K=4, O=17)
+    B = 4
+    text = np.zeros((B, 40), np.uint8)
+    pattern = np.ones((B, 40), np.uint8)
+    pattern[0] = 0  # lane 0 aligns exactly
+    tlen = np.full(B, 40, np.int32)
+    plen = np.full(B, 40, np.int32)
+    rx = engine_xla.align_batch(cfg, 8, np.pad(text, ((0, 124), (0, 0))),
+                                np.pad(tlen, (0, 124)),
+                                np.pad(pattern, ((0, 124), (0, 0))),
+                                np.pad(plen, (0, 124)))
+    rt = engine.align_batch(cfg, 8, pack.pack_2bit(_port(text)), _port(tlen),
+                            pack.pack_2bit(_port(pattern)), _port(plen))
+    assert rt.failed.tolist() == [0, engine.FAIL_TB, engine.FAIL_TB,
+                                  engine.FAIL_TB]
+    assert (np.asarray(rx.failed)[:B] != 0).tolist() == [False, True, True,
+                                                          True]
+    assert int(rt.counts[:, 1:].sum()) == 0

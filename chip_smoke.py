@@ -5,30 +5,41 @@
 Phases, one line each:
   1. toolchain: torch, CUDA, nvcc, triton, and the card as nvidia-smi
      reports it (its own line);
-  2. build: compile the window kernel from csrc/ with nvcc;
-  3. kernel against plain: the CUDA kernel and the plain torch engine on
-     the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33 and
-     32/32/17, then the main path's own tile (16384 reads of 10 kbp);
-     every output must be identical;
+  2. build: compile both kernels from csrc/ with nvcc, one process each,
+     started together; registers and spills of every instantiation;
+  3. kernel against plain: the window kernel and the plain torch engine on
+     the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33,
+     32/32/17, 96/96/49, 128/128/65, 192/192/97 and 256/256/129 (one to
+     four 64-bit words a bitvector), then the main path's own tile
+     (16384 reads of 10 kbp at 64/64/33); every output must be identical;
   4. main path: align_reads on the bench workload (simulate_dataset(
      1 Mbp genome, 16384 reads x 10 kbp, 95 % accuracy, seed 7), W=64
      K=64 O=33, one tile of 16384), strings then packed; the kernel's
      launch count must grow, both outputs must agree, sampled pairs must
      equal pyref and carry valid CIGARs;
   5. kernel-only time of the same tile, CUDA events;
-  6. the README's quick-start pair.
+  6. the README's quick-start pair;
+  7. wide path: the same tile at W=128 K=128 O=65 (two words), kernel
+     against plain, then align_reads checked as in phase 4, and its
+     kernel-only time; then align_reads at 192/192/97 and 256/256/129 on
+     512 reads of 2 kbp, each held against plain and pyref;
+  8. fill lab: each variant of the fill-only kernel against its plain
+     version at 2048 lanes, 2 windows (per-lane wed and sum identical),
+     then the lab entry point's timing at 64 windows for 2048 and 16384
+     lanes.
 
 Then the kernels' JSON line, the card line again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without a CUDA device the script exits 1 and prints no result. It imports
-no JAX: its oracles are scrooge_tpu.pyref, scrooge_tpu.cigar and the
-port's plain engine.
+no JAX and nothing of the JAX package: its oracles are the port's own
+pyref, cigar, utils.simulate and plain versions.
 """
 
 from __future__ import annotations
 
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -36,8 +47,13 @@ import time
 import numpy as np
 import torch
 
-SOURCE = "scrooge_tpu_torch/csrc/genasm_windows.cu"
-REPLACES = "scrooge_tpu/ops/engine_pallas.py:901"
+WINDOWS_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows.cu"
+WINDOWS_REPLACES = "scrooge_tpu/ops/engine_pallas.py:901"
+LAB_SOURCE = "scrooge_tpu_torch/csrc/genasm_fill_lab.cu"
+LAB_REPLACES = "tools/kernel_lab.py:107"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 units
+TB_STEP_OPS = 12           # int32 ops per traceback step: 3 bit tests
 
 
 def phase(name: str, **fields) -> None:
@@ -45,11 +61,10 @@ def phase(name: str, **fields) -> None:
           flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -61,6 +76,29 @@ def nvcc_release() -> str:
                          check=True).stdout
     return next((ln.split("release")[1].split(",")[0].strip()
                  for ln in out.splitlines() if "release" in ln), "unknown")
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers and spills per compiled function of an nvcc -Xptxas -v
+    log, e.g. 'genasm_windows_kernel<2>: 96 regs, 0 B spill'."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            base = re.findall(r"[a-z_]+_kernel", mangled)
+            tmpl = re.search(r"ILi(\d+)E", mangled)
+            name = (base[-1] if base else mangled) + (
+                f"<{tmpl.group(1)}>" if tmpl else "")
+            spill = "?"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill} B spill")
+            name = None
+    return "; ".join(out)
 
 
 def max_abs_diff(a, b) -> int:
@@ -120,6 +158,41 @@ def random_pairs(cfg, seed, dev, B=512, length=1000, rate=0.05):
                   torch.from_numpy(plen).to(dev))
 
 
+def int32_ops_per_s() -> float:
+    """The card's INT32 rate: SMs x 64 INT32 lanes x the SM's max clock."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def window_bound(cfg, maxw, args, res, ops_rate):
+    """Least time the window engine could take on this run's inputs:
+    (ms, 'bytes' or 'operations', detail). ``res`` is the plain version's
+    result on those inputs. Operations: every DP cell the run filled (its
+    work counters; the kernel fills the same cells) at 2 x (7 NW + 6 (NW-1))
+    INT32 ops (the d >= 1 recurrence on NW 64-bit words, each 64-bit
+    logic op or shift two 32-bit ops, d = 0 cells counted alike), plus
+    TB_STEP_OPS a traceback step. Bytes: the packed text and pattern
+    chars read once, lengths and bases, every run, count and result
+    written once."""
+    from scrooge_tpu_torch.ops import engine
+
+    nw = engine.num_words(cfg.W)
+    cells = int(res.work[0].sum().item())
+    steps = int(res.work[1].sum().item())
+    ops = cells * 2 * (7 * nw + 6 * (nw - 1)) + steps * TB_STEP_OPS
+    B = int(args[4].shape[0])
+    read_chars = int(args[4].long().sum().item())
+    # text and pattern: about as many text chars are consumed as read
+    nbytes = (2 * read_chars // 4 + 16 * B
+              + 2 * int(res.counts.long().sum().item()) + 4 * maxw * B
+              + 24 * B)
+    t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", dict(cells=cells, tb_steps=steps, int32_ops=ops,
+                          bytes=nbytes))
+
+
 def compare(cfg, maxw, args, label):
     """Kernel wrapper and plain engine on the same device tensors."""
     from scrooge_tpu_torch.ops import engine
@@ -130,17 +203,17 @@ def compare(cfg, maxw, args, label):
     err = max_abs_diff(got, want)
     failed = int((got.failed != 0).sum().item())
     phase("kernel-vs-plain", shape=label, W=cfg.W, K=cfg.K, O=cfg.O,
-          B=int(args[4].shape[0]), maxw=maxw, kernel_ms=f"{ms:.3f}",
-          plain_ms=f"{plain_ms:.3f}", max_abs_err=err, tolerance=0,
-          failed_lanes=failed)
+          NW=engine.num_words(cfg.W), B=int(args[4].shape[0]), maxw=maxw,
+          kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+          max_abs_err=err, tolerance=0, failed_lanes=failed)
     if err != 0:
         raise AssertionError(f"kernel and plain engine differ ({label})")
-    return ms, plain_ms, err
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, plain=want)
 
 
 def packed_cigars(packed):
     """All CIGAR strings of a PackedAlignments via the native formatter."""
-    from scrooge_tpu import native
+    from scrooge_tpu_torch import native
 
     lens = np.diff(packed.run_offsets).astype(np.int32)
     n = len(lens)
@@ -149,10 +222,130 @@ def packed_cigars(packed):
     pos = np.arange(len(packed.runs)) - np.repeat(packed.run_offsets[:-1],
                                                   lens)
     buf[pos, lane] = packed.runs
-    out = native.format_cigars(buf, lens)
-    if out is None:
-        raise RuntimeError("scrooge_tpu.native is unavailable")
-    return out
+    return native.format_cigars(buf, lens)
+
+
+def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
+    """align_reads through the public API, strings then packed, with the
+    window kernel's counts set to 0 just before and read just after;
+    checks both outputs agree, ``nsample`` pairs (the longest read among
+    them) equal pyref and ``ncigar`` CIGARs are valid."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch import pyref
+    from scrooge_tpu_torch.cigar import is_valid_cigar
+    from scrooge_tpu_torch.ops import _cuda
+
+    _cuda.GENASM_WINDOWS.counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strs, stats = st.align_reads(prepared, ds.reads, cfg, return_stats=True,
+                                 device=dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed, pstats = st.align_reads(prepared, ds.reads, cfg,
+                                    return_stats=True, return_packed=True,
+                                    device=dev)
+    pwall = time.perf_counter() - t0
+    counts = dict(_cuda.GENASM_WINDOWS.counts)
+    if sum(counts.values()) < 1:
+        raise AssertionError(f"{label}: the path never launched the kernel")
+    n = len(ds.reads)
+    if [a.cigar for a in strs] != packed_cigars(packed) or not np.array_equal(
+            np.array([a.edit_distance for a in strs]),
+            packed.edit_distances):
+        raise AssertionError(f"{label}: strings and packed output disagree")
+    lens = [len(r.content) for r in ds.reads]
+    rng = random.Random(7)
+    sample = sorted({int(np.argmax(lens))}
+                    | set(rng.sample(range(n), nsample - 1)))
+    bound = lambda r: cfg.max_windows(len(r.content)) * cfg.tb_limit + cfg.W
+    for i in sample:
+        r = ds.reads[i]
+        s = r.locations[0].start_in_reference
+        want = pyref.genasm(pyref.encode(ds.genome.content[s : s + bound(r)]),
+                            pyref.encode(r.content), cfg)
+        if (strs[i].edit_distance, strs[i].cigar) != want:
+            raise AssertionError(f"{label}: pair {i} differs from pyref")
+    for i in rng.sample(range(n), ncigar):
+        r = ds.reads[i]
+        if not is_valid_cigar(strs[i].cigar, strs[i].edit_distance,
+                              ds.genome.content, r.content,
+                              r.locations[0].start_in_reference):
+            raise AssertionError(f"{label}: pair {i} has an invalid CIGAR")
+    phase(label, W=cfg.W, K=cfg.K, O=cfg.O, pairs=n,
+          launches=json.dumps(counts), retried_pairs=stats.retried_pairs,
+          pyref_exact=len(sample), valid_cigars=ncigar,
+          wall_s=f"{wall:.3f}", aligns_per_s=f"{n / wall:.1f}",
+          packed_wall_s=f"{pwall:.3f}",
+          packed_aligns_per_s=f"{n / pwall:.1f}",
+          breakdown=repr(stats.breakdown()),
+          packed_breakdown=repr(pstats.breakdown()))
+    return counts
+
+
+def kernel_only(label, staged, n):
+    from scrooge_tpu_torch.profiling import kernel_time
+
+    samples = kernel_time.engine_ms(staged, reps=3, groups=3)
+    rates = sorted(n * 1e3 / ms for ms in samples)
+    phase(label, tile=n, ms=" ".join(f"{x:.3f}" for x in samples),
+          aligns_per_s=f"{rates[1]:.1f}", min=f"{rates[0]:.1f}",
+          max=f"{rates[-1]:.1f}")
+
+
+def fill_lab(ops_rate):
+    """Phase 8: returns the kernels-line entries of the fill-lab kernel."""
+    from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.tools import kernel_lab as lab
+
+    dev = torch.device("cuda")
+    m, n, pmi = (t.to(dev) for t in lab.from_lab_layout(*lab.lab_inputs(2048)))
+    checks = {}
+    for v in lab.VARIANTS:
+        got = lab.run(v, 2, m, n, pmi, device=dev)
+        want = lab.run_plain(v, 2, m, n, pmi)
+        err = int((got.wed.long() - want.wed.long()).abs().max().item())
+        err = max(err, abs(int(got.total) - int(want.total)))
+        _, plain_ms = timed(lab.run_plain, v, lab.NWIN, m, n, pmi)
+        phase("fill-lab-vs-plain", variant=v, B=2048, nwin=2,
+              total=int(got.total), plain_total=int(want.total),
+              max_abs_err=err, tolerance=0, plain_ms=f"{plain_ms:.3f}")
+        if err != 0:
+            raise AssertionError(f"fill-lab kernel and plain differ ({v})")
+        checks[v] = (err, plain_ms)
+
+    # the entry point's own measurement, counts set to 0 just before
+    _cuda.GENASM_FILL_LAB.counts.clear()
+    torch.cuda.synchronize()
+    rows = {B: lab.measure(lab.VARIANTS, batch=B, device=dev)
+            for B in (2048, 16384)}
+    counts = dict(_cuda.GENASM_FILL_LAB.counts)
+    entries = []
+    for k, v in enumerate(lab.VARIANTS):
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"the lab never launched variant {v}")
+        for B in (2048, 16384):
+            r = next(x for x in rows[B] if x["variant"] == v)
+            phase("fill-lab", variant=v, B=B, nwin=lab.NWIN,
+                  ms=f"{r['ms']:.3f}",
+                  us_per_window=f"{r['us_per_window']:.3f}",
+                  mean_wed=f"{r['mean_wed']:.3f}")
+        r = next(x for x in rows[2048] if x["variant"] == v)
+        # cells: each lane fills (wed+1) rows of W+1 columns per window,
+        # 7 64-bit ops a cell (two INT32 ops each); bytes: pmi, m and n
+        # read once, wed and the per-lane sum written once
+        ops = lab.NWIN * (r["wed_sum"] + 2048) * (lab.W + 1) * 14
+        nbytes = lab.W * 2048 * 8 + 2048 * (4 + 4 + 4 + 8)
+        t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        entries.append({
+            "name": f"genasm_fill_lab[{v}]", "route": "cuda",
+            "source": LAB_SOURCE, "replaces": LAB_REPLACES,
+            "launches": counts[k], "max_abs_err": checks[v][0],
+            "ms": r["ms"], "plain_ms": checks[v][1],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "shape": f"B=2048 nwin={lab.NWIN}"})
+    return entries
 
 
 def main() -> int:
@@ -162,11 +355,9 @@ def main() -> int:
         return 1
 
     import scrooge_tpu_torch as st
-    from scrooge_tpu import pyref
-    from scrooge_tpu.cigar import is_valid_cigar
-    from scrooge_tpu.utils.simulate import simulate_dataset
-    from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.ops import _cuda, engine
     from scrooge_tpu_torch.profiling import kernel_time
+    from scrooge_tpu_torch.utils.simulate import simulate_dataset
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -178,22 +369,22 @@ def main() -> int:
         has_triton = True
     except ImportError:
         has_triton = False
-    card = nvidia_smi()
+    card = nvidia_smi("name,power.limit")
+    ops_rate = int32_ops_per_s()
     phase("toolchain", torch=torch.__version__, cuda=torch.version.cuda,
-          device=repr(kind), nvcc=nvcc_release(), triton=has_triton)
+          device=repr(kind), nvcc=nvcc_release(), triton=has_triton,
+          int32_tops=f"{ops_rate / 1e12:.3f}")
     print(card, flush=True)
 
     # ---- 2. build ----
-    t0 = time.perf_counter()
-    _cuda.GENASM_WINDOWS.build()
-    ptxas = " | ".join(ln.strip() for ln in
-                       _cuda.GENASM_WINDOWS.build_log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    phase("build", kernel="genasm_windows",
-          seconds=f"{time.perf_counter() - t0:.2f}", ptxas=repr(ptxas))
+    for src, secs in _cuda.build_all().items():
+        k = next(k for k in _cuda.KERNELS if k.source == src)
+        phase("build", source=src, seconds=f"{secs:.2f}",
+              ptxas=repr(ptxas_summary(k.build_log)))
 
     # ---- 3. kernel against plain ----
-    for W, K, O in ((64, 64, 33), (32, 32, 17)):
+    for W, K, O in ((64, 64, 33), (32, 32, 17), (96, 96, 49),
+                    (128, 128, 65), (192, 192, 97), (256, 256, 129)):
         cfg = st.AlignConfig(W=W, K=K, O=O)
         maxw, args = random_pairs(cfg, W, dev)
         compare(cfg, maxw, args, "512x1kbp")
@@ -207,60 +398,14 @@ def main() -> int:
     staged = kernel_time.stage_mapped(prepared, ds.reads, cfg, dev)
     phase("dataset", reads=len(ds.reads),
           seconds=f"{time.perf_counter() - t0:.2f}")
-    main_ms, main_plain_ms, main_err = compare(cfg, staged[1], staged[2],
-                                               "main-path tile")
+    main_tile = compare(cfg, staged[1], staged[2], "main-path tile")
+    windows = {1: (cfg, staged, main_tile)}
 
     # ---- 4. main path ----
-    _cuda.GENASM_WINDOWS.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    strs, stats = st.align_reads(prepared, ds.reads, cfg, return_stats=True,
-                                 device=dev)
-    wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    packed, pstats = st.align_reads(prepared, ds.reads, cfg,
-                                    return_stats=True, return_packed=True,
-                                    device=dev)
-    pwall = time.perf_counter() - t0
-    launches = _cuda.GENASM_WINDOWS.launches
-    if launches < 1:
-        raise AssertionError("the main path never launched the kernel")
-    n = len(ds.reads)
-    if [a.cigar for a in strs] != packed_cigars(packed) or not np.array_equal(
-            np.array([a.edit_distance for a in strs]),
-            packed.edit_distances):
-        raise AssertionError("strings and packed output disagree")
-    lens = [len(r.content) for r in ds.reads]
-    rng = random.Random(7)
-    sample = sorted({int(np.argmax(lens))} | set(rng.sample(range(n), 15)))
-    bound = lambda r: cfg.max_windows(len(r.content)) * cfg.tb_limit + cfg.W
-    for i in sample:
-        r = ds.reads[i]
-        s = r.locations[0].start_in_reference
-        want = pyref.genasm(pyref.encode(ds.genome.content[s : s + bound(r)]),
-                            pyref.encode(r.content), cfg)
-        if (strs[i].edit_distance, strs[i].cigar) != want:
-            raise AssertionError(f"pair {i} differs from pyref")
-    for i in rng.sample(range(n), 512):
-        r = ds.reads[i]
-        if not is_valid_cigar(strs[i].cigar, strs[i].edit_distance,
-                              ds.genome.content, r.content,
-                              r.locations[0].start_in_reference):
-            raise AssertionError(f"pair {i} has an invalid CIGAR")
-    phase("main-path", pairs=n, launches=launches,
-          retried_pairs=stats.retried_pairs, pyref_exact=len(sample),
-          valid_cigars=512, wall_s=f"{wall:.3f}",
-          aligns_per_s=f"{n / wall:.1f}", packed_wall_s=f"{pwall:.3f}",
-          packed_aligns_per_s=f"{n / pwall:.1f}",
-          breakdown=repr(stats.breakdown()),
-          packed_breakdown=repr(pstats.breakdown()))
+    counts = {1: drive_path("main-path", cfg, ds, prepared, dev, 16, 512)}
 
     # ---- 5. kernel-only time ----
-    samples = kernel_time.engine_ms(staged, reps=3, groups=3)
-    rates = sorted(n * 1e3 / ms for ms in samples)
-    phase("kernel-only", tile=n, ms=" ".join(f"{x:.3f}" for x in samples),
-          aligns_per_s=f"{rates[1]:.1f}", min=f"{rates[0]:.1f}",
-          max=f"{rates[-1]:.1f}")
+    kernel_only("kernel-only", staged, len(ds.reads))
 
     # ---- 6. quick-start pair ----
     a = st.align_pairs(["AAAACCCCGGGGTTTT"], ["CCCCGGGGTTTTAAAA"],
@@ -269,10 +414,46 @@ def main() -> int:
     if (a.edit_distance, a.cigar) != (8, "4D12=4I"):
         raise AssertionError("quick-start pair differs from 8 4D12=4I")
 
-    print(json.dumps({"kernels": [{
-        "name": "genasm_windows", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": main_err,
-        "ms": main_ms, "plain_ms": main_plain_ms}]}))
+    # ---- 7. wide path ----
+    wcfg = st.AlignConfig(W=128, K=128, O=65, batch_tile=16384)
+    wstaged = kernel_time.stage_mapped(prepared, ds.reads, wcfg, dev)
+    wide_tile = compare(wcfg, wstaged[1], wstaged[2], "wide tile")
+    windows[2] = (wcfg, wstaged, wide_tile)
+    counts[2] = drive_path("wide-path", wcfg, ds, prepared, dev, 16, 512)
+    kernel_only("wide-kernel-only", wstaged, len(ds.reads))
+    small = simulate_dataset(genome_len=200_000, num_reads=512,
+                             read_len=2000, accuracy=0.95, seed=11)
+    sprep = st.prepare_genome(small.genome)
+    for nw, (W, K, O) in ((3, (192, 192, 97)), (4, (256, 256, 129))):
+        c = st.AlignConfig(W=W, K=K, O=O, batch_tile=512)
+        sst = kernel_time.stage_mapped(sprep, small.reads, c, dev)
+        windows[nw] = (c, sst, compare(c, sst[1], sst[2], "512x2kbp"))
+        counts[nw] = drive_path(f"wide-path-w{W}", c, small, sprep, dev, 4,
+                                128)
+
+    kernels = []
+    for nw, (c, sst, cmp) in sorted(windows.items()):
+        launches = counts[nw].get(nw, 0)
+        if launches < 1:
+            raise AssertionError(f"genasm_windows<{nw}> never launched on "
+                                 f"its path")
+        bound_ms, bound_by, detail = window_bound(c, sst[1], sst[2],
+                                                  cmp["plain"], ops_rate)
+        phase("bound", kernel=f"genasm_windows[NW={nw}]", W=c.W,
+              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
+              **{k: v for k, v in detail.items()})
+        kernels.append({
+            "name": f"genasm_windows[NW={nw}]", "route": "cuda",
+            "source": WINDOWS_SOURCE, "replaces": WINDOWS_REPLACES,
+            "launches": launches, "max_abs_err": cmp["max_abs_err"],
+            "ms": cmp["ms"], "plain_ms": cmp["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": f"W={c.W} K={c.K} O={c.O} B={sst[3]}"})
+
+    # ---- 8. fill lab ----
+    kernels += fill_lab(ops_rate)
+
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,48 @@
+"""Compile a source file into a shared library, once per content and flags.
+
+The port's CUDA kernels (nvcc) and native host helpers (g++) are built at
+first use into ``scrooge_tpu_torch/_build/``, under a name keyed by a hash
+of the source, the compiler flags and the machine type, so an edit or a
+new flag builds anew and a checkout never loads a stale library. Nothing
+is built at import time.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import platform
+import subprocess
+from typing import Sequence, Tuple
+
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_build")
+
+
+def compile_once(source: str, compiler: str, flags: Sequence[str],
+                 timeout: int = 900) -> Tuple[str, str]:
+    """(path of the built library, the compiler's output). The output is
+    empty when the library was built before. Raises RuntimeError when the
+    compiler cannot be run or fails; there is no fallback."""
+    with open(source, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(
+            (*flags, platform.machine())).encode()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(source))[0]
+    so = os.path.join(BUILD_DIR, f"{stem}-{key}.so")
+    if os.path.exists(so):
+        return so, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", tmp, source],
+                              capture_output=True, text=True,
+                              timeout=timeout)
+    except OSError as e:
+        raise RuntimeError(f"{compiler} could not be run for {source}: "
+                           f"{e}") from e
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{compiler} failed on {source} (exit "
+                           f"{proc.returncode}):\n{log}")
+    os.replace(tmp, so)
+    return so, log

@@ -1,24 +1,25 @@
 """Build, bind and count the port's CUDA kernels.
 
 Each kernel is a ``csrc/*.cu`` file with a plain C entry point. It is
-compiled with nvcc for ``sm_90a`` into ``scrooge_tpu_torch/_build/`` on
-first use, under a name keyed by a hash of its source and flags, and
-loaded with ctypes. Nothing here runs at import time, so the module
+compiled with nvcc for ``sm_90a`` on first use (``buildcache``) and loaded
+with ctypes. Nothing here runs at import time, so the module
 imports on machines without CUDA.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+from ..buildcache import compile_once
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,26 +42,22 @@ def find_nvcc() -> str:
 
 
 class CudaKernel:
-    """One kernel: its source, its C entry point, and its launch count.
+    """One kernel source: its C entry point and its launch counts.
 
-    ``launches`` goes up by one each time ``launch`` starts the kernel,
-    and nowhere else, so a caller can show that a run went through it.
+    The entry point's first argument selects the kernel's instantiation
+    (a template parameter: the word count, the variant). ``counts[key]``
+    goes up by one each time ``launch`` starts that instantiation, and
+    nowhere else, so a caller can show that a run went through it.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
-        self.argtypes = list(argtypes)
-        self.launches = 0
+        self.argtypes = [ctypes.c_int, *argtypes]
+        self.counts = collections.Counter()
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
-
-    def so_path(self) -> str:
-        with open(os.path.join(CSRC, self.source), "rb") as f:
-            key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        stem = os.path.splitext(self.source)[0]
-        return os.path.join(BUILD_DIR, f"{stem}-{key.hexdigest()[:16]}.so")
 
     def build(self):
         """Compile (unless built already) and bind; returns the C function.
@@ -68,20 +65,8 @@ class CudaKernel:
         with self._lock:
             if self._fn is not None:
                 return self._fn
-            so = self.so_path()
-            if not os.path.exists(so):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{so}.{os.getpid()}.tmp"
-                cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                       os.path.join(CSRC, self.source)]
-                proc = subprocess.run(cmd, capture_output=True, text=True,
-                                      timeout=900)
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {self.source} "
-                        f"(exit {proc.returncode}):\n{self.build_log}")
-                os.replace(tmp, so)
+            so, self.build_log = compile_once(
+                os.path.join(CSRC, self.source), find_nvcc(), NVCC_FLAGS)
             lib = ctypes.CDLL(so)
             fn = getattr(lib, self.symbol)
             fn.restype = ctypes.c_int
@@ -89,19 +74,23 @@ class CudaKernel:
             self._fn = fn
             return fn
 
-    def launch(self, *args) -> None:
-        """Launch on the stream passed in ``args``; raises when the launch
-        status (cudaGetLastError right after it) is not cudaSuccess."""
-        rc = self.build()(*args)
+    def launch(self, key: int, *args) -> None:
+        """Launch instantiation ``key`` on the stream passed in ``args``;
+        raises when the entry point refuses the arguments (-1) or the
+        launch status (cudaGetLastError right after it) is not
+        cudaSuccess."""
+        rc = self.build()(key, *args)
         if rc != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
-                               f"{rc}")
-        self.launches += 1
+            raise RuntimeError(f"{self.symbol}({key}) launch failed: "
+                               + ("arguments refused" if rc == -1
+                                  else f"CUDA error {rc}"))
+        self.counts[key] += 1
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-# replaces engine_pallas.slab_step_kernel (_multi_window_kernel)
+# replaces engine_pallas.slab_step_kernel (_multi_window_kernel); keyed
+# by the words per bitvector, NW = ceil(W/64)
 GENASM_WINDOWS = CudaKernel(
     "genasm_windows.cu", "genasm_windows_launch",
     [_P, _P, _P,          # text words, text base chars, text len
@@ -110,3 +99,28 @@ GENASM_WINDOWS = CudaKernel(
      _P, _P,              # R scratch, forefront scratch
      _P, _P, _P, _P,      # ed, failed, entries, counts
      _P])                 # cudaStream_t
+
+# replaces tools/kernel_lab.py:run (fill_kernel); keyed by the variant,
+# 0 full, 1 nostore, 2 noff
+GENASM_FILL_LAB = CudaKernel(
+    "genasm_fill_lab.cu", "genasm_fill_lab_launch",
+    [_I, _P, _P, _P, _I,  # nwin, m, n, pmi, B
+     _P, _P,              # R scratch, forefront scratch
+     _P, _P,              # wed, per-lane sum over windows
+     _P])                 # cudaStream_t
+
+KERNELS = (GENASM_WINDOWS, GENASM_FILL_LAB)
+
+
+def build_all(kernels=KERNELS):
+    """Build every kernel at once, one nvcc each, all started together;
+    returns {source: seconds until built}. Raises the first failure."""
+    t0 = time.perf_counter()
+
+    def one(k):
+        k.build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        futures = [(k.source, pool.submit(one, k)) for k in kernels]
+        return {src: f.result() for src, f in futures}

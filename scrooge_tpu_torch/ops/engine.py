@@ -4,10 +4,11 @@ Port of the JAX package's window engines:
 
 - ``engine_pallas.align_batch`` / ``align_batch_mapped`` / ``_align_scan``
   and the Pallas kernel ``slab_step_kernel`` -> ``_multi_window_kernel``
-  (scrooge_tpu/ops/engine_pallas.py:367-1123). On the card this is one
-  hand-written kernel, ``csrc/genasm_windows.cu``: one thread per pair, one
-  launch for all windows. It replaces the slab loop and the per-pair
-  segment copy.
+  (scrooge_tpu/ops/engine_pallas.py:367-1123), with its multiword helpers
+  (``_mw_*``, ``_shl1_u32``, ``_ones_shifted_u32``, :241-334). On the card
+  this is one hand-written kernel, ``csrc/genasm_windows.cu``: one thread
+  per pair, one launch for all windows. It replaces the slab loop and the
+  per-pair segment copy.
 - ``engine_xla._window_step`` / ``_align_scan`` / ``align_batch[_mapped]``
   (scrooge_tpu/ops/engine_xla.py:105-443). ``align_windows_plain`` below is
   their lane-batched lockstep counterpart in torch ops. The CPU path and
@@ -26,22 +27,24 @@ Semantics that differ from the JAX engines, and why no output changes:
 - early termination is always on: the rows after the first hit are never
   read by the traceback.
 
-Bitvectors are one 64-bit word (W <= 64), LSB-aligned as in the scalar
-oracle (scrooge_tpu/pyref.py): pattern position j is bit m-1-j and the
-full-match probe is bit m-1. torch's unsigned dtypes cannot shift, invert
-or scatter on the CPU, so the plain version keeps them in int64: at W=64,
-bit 63 is the sign bit, every right shift is followed by ``& 1`` (an
+Bitvectors are NW = ceil(W/64) 64-bit words, word 0 the lowest, W <= 256,
+LSB-aligned as in the scalar oracle (pyref.py): pattern position j is bit
+m-1-j of the whole multiword value, the full-match probe is bit m-1, a
+shift by d >= W saturates to 0, and the top word is masked to its
+W - 64*(NW-1) bits. torch's unsigned dtypes cannot shift, invert or
+scatter on the CPU, so the plain version keeps the words in int64: bit 63
+of a word is the sign bit, every right shift is followed by ``& 1`` (an
 arithmetic shift only smears copies of bit 63 above the bit read), and
 left shifts wrap as two's complement.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from scrooge_tpu.config import AlignConfig
+from ..config import AlignConfig
 
 from . import _cuda
 from .pack import unpack_codes
@@ -56,7 +59,8 @@ FAIL_TB = 1          # no window alignment within K edits
 FAIL_STALL = 2       # a window consumed no text and no pattern
 FAIL_INCOMPLETE = 8  # the read was not consumed within max_windows
 
-MAX_W = 64
+MAX_W = 256
+WORD = 64
 
 
 class BatchResult(NamedTuple):
@@ -64,14 +68,24 @@ class BatchResult(NamedTuple):
     failed: torch.Tensor         # (B,) int32 FAIL_* bitmask, 0 = aligned
     entries: torch.Tensor        # (MAXW, NE, B) int16 runs op << 12 | count
     counts: torch.Tensor         # (MAXW, B) int32 runs per window
+    # (2, B) int64 work per lane, from the plain version only: DP cells
+    # filled (rows searched x (n+1) columns, summed over windows) and
+    # traceback steps, what a bound on the engine's time counts. The
+    # kernel does the same work and leaves this None.
+    work: Optional[torch.Tensor] = None
 
 
 def check_config(cfg: AlignConfig) -> None:
     if cfg.W > MAX_W:
         raise NotImplementedError(
-            f"W={cfg.W}: the torch port holds a window in one 64-bit word "
-            "(W <= 64); wider windows wait for the multiword kernel, "
-            "ROADMAP.md queue 1 'W > 64 multiword kernel'")
+            f"W={cfg.W}: the torch port holds a window in at most four "
+            "64-bit words (W <= 256); W > 256 waits for the full-K engine, "
+            "ROADMAP.md queue 1 item 8")
+
+
+def num_words(W: int) -> int:
+    """64-bit words per bitvector."""
+    return -(-W // WORD)
 
 
 def entry_rows(cfg: AlignConfig) -> int:
@@ -80,9 +94,17 @@ def entry_rows(cfg: AlignConfig) -> int:
     return 2 * cfg.tb_limit + 2
 
 
-def _full_mask(W: int) -> int:
-    """ones(W) as an int64 value (bit 63 is the sign bit at W=64)."""
-    return -1 if W == 64 else (1 << W) - 1
+def _signed(x: int) -> int:
+    """A 64-bit unsigned value as the int64 holding the same bits."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def ones_shifted(W: int, d: int):
+    """(ones(W) << d) & ones(W) as NW int64 words, word 0 lowest; all ones
+    at d = 0 and 0 from d = W on (engine_pallas._ones_shifted_u32)."""
+    v = ((1 << W) - 1) & ~((1 << min(d, W)) - 1)
+    return [_signed((v >> (WORD * k)) & ((1 << WORD) - 1))
+            for k in range(num_words(W))]
 
 
 def align_windows(cfg: AlignConfig, max_windows: int, text_words,
@@ -150,10 +172,12 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
     dev = pattern_words.device
     B = int(pattern_len.shape[0])
     NE = entry_rows(cfg)
-    # R: rows d <= K, columns i < W-O+1 (DENT), lane-minor [row][col][lane]
-    R = torch.empty((cfg.K + 1) * cfg.columns * B, dtype=torch.int64,
+    NW = num_words(cfg.W)
+    # R: rows d <= K, columns i < W-O+1 (DENT), all NW words,
+    # lane-minor [row][col][word][lane]; the forefront [col][word][lane]
+    R = torch.empty((cfg.K + 1) * cfg.columns * NW * B, dtype=torch.int64,
                     device=dev)
-    ff = torch.empty((cfg.W + 1) * B, dtype=torch.int64, device=dev)
+    ff = torch.empty((cfg.W + 1) * NW * B, dtype=torch.int64, device=dev)
     ed = torch.empty(B, dtype=torch.int32, device=dev)
     failed = torch.empty(B, dtype=torch.int32, device=dev)
     entries = torch.zeros((max_windows, NE, B), dtype=torch.int16,
@@ -162,13 +186,39 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         _cuda.GENASM_WINDOWS.launch(
-            text_words.data_ptr(), text_base.data_ptr(),
+            NW, text_words.data_ptr(), text_base.data_ptr(),
             text_len.data_ptr(), pattern_words.data_ptr(),
             int(pattern_words.shape[1]), pattern_len.data_ptr(), B, cfg.W,
             cfg.K, cfg.O, int(max_windows), R.data_ptr(), ff.data_ptr(),
             ed.data_ptr(), failed.data_ptr(), entries.data_ptr(),
             counts.data_ptr(), stream)
     return BatchResult(ed, failed, entries, counts)
+
+
+class _Words:
+    """Multiword int64 bitvector arithmetic of one width; vectors are
+    tensors (..., NW, B), word 0 lowest (engine_pallas._mw_*)."""
+
+    def __init__(self, W: int, dev):
+        self.W, self.nw, self.dev = W, num_words(W), dev
+        # ones(W): every word all ones, the top one masked to its bits
+        self.full = self.const(ones_shifted(W, 0))
+
+    def const(self, words) -> torch.Tensor:
+        return torch.tensor(words, dtype=torch.int64, device=self.dev)[:, None]
+
+    def shl1(self, v: torch.Tensor) -> torch.Tensor:
+        """v << 1 across the words, masked to W bits."""
+        out = v << 1
+        if self.nw > 1:
+            out[..., 1:, :] |= (v[..., :-1, :] >> (WORD - 1)) & 1
+        return out & self.full
+
+    @staticmethod
+    def bit(v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Bit ``pos`` (B,) of each lane's vector v (NW, B), as 0 or 1."""
+        word = v.gather(0, (pos >> 6)[None])[0]
+        return (word >> (pos & (WORD - 1))) & 1
 
 
 def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
@@ -188,12 +238,13 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     TB, COLS, NE = cfg.tb_limit, cfg.columns, entry_rows(cfg)
     dev = pattern_words.device
     B = int(pattern_len.shape[0])
+    bv = _Words(W, dev)
+    NW = bv.nw
     i64 = torch.int64
 
     def zeros(*shape, dtype=i64):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    full = torch.tensor(_full_mask(W), dtype=i64, device=dev)
     tw = text_words.reshape(-1)
     pw = pattern_words.reshape(-1)
     tbase = text_base
@@ -204,14 +255,15 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     wi = torch.arange(W, dtype=i64, device=dev)
     col = torch.arange(W + 1, dtype=i64, device=dev)
     lane = torch.arange(B, dtype=i64, device=dev)
+    cw = (torch.arange(4, dtype=i64, device=dev)[:, None] * NW
+          + torch.arange(NW, dtype=i64, device=dev))  # (4, NW): c*NW + word
 
     ref_idx, read_idx, ed = zeros(B), zeros(B), zeros(B)
     failed = zeros(B, dtype=torch.int32)
     done = plen <= 0
     entries = zeros(max_windows, NE, B, dtype=torch.int16)
     counts = zeros(max_windows, B, dtype=torch.int32)
-    R = zeros(K + 1, COLS, B)
-    Rf = R.view(-1)
+    work = zeros(2, B)
 
     for w in range(max_windows):
         act = ~done
@@ -229,52 +281,52 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
 
         # pattern masks PM[c]: zero at bit m-1-j where pattern[j] == c
         # (pyref._pattern_masks); the bits are distinct, so a sum is an OR
-        bit = torch.where(
-            wi < m[:, None],
-            torch.ones_like(tch) << (m[:, None] - 1 - wi).clamp(min=0), 0)
-        pm = torch.stack([full & ~(bit * (pch == c)).sum(1)
-                          for c in range(4)], 1)
-        pmi = pm.gather(1, tch).T.contiguous()  # (W, B): PM[text[i]]
+        pos = (m[:, None] - 1 - wi).clamp(min=0)  # (B, W)
+        bit = torch.where(wi < m[:, None],
+                          torch.ones_like(pos) << (pos & (WORD - 1)), 0)
+        key = pch * NW + (pos >> 6)  # (B, W): which (c, word) holds the bit
+        sel = key[:, None, None, :] == cw[None, :, :, None]
+        pm = bv.full[:, 0] & ~(bit[:, None, None, :] * sel).sum(-1)  # (B,4,NW)
+        # (W, NW, B): PM[text[i]]
+        pmi = pm.gather(1, tch[:, :, None].expand(B, W, NW)).permute(
+            1, 2, 0).contiguous()
         is_start = col[:, None] >= n[None, :]   # (W+1, B): column i >= n
 
         # ---- DP fill (pyref.genasm_dc) ----
         found = ~act
         wed = zeros(B)
+        rows = []  # R[d]: the stored DENT columns of row d, (COLS, NW, B)
         probe = (m - 1).clamp(min=0)
         ff = None
         for d in range(K + 1):
-            # start column i == n: ones at d == 0, ones << d after (an
-            # x << 64 would be undefined in C, so d >= 64 saturates to 0)
-            if d == 0:
-                start = full
-            elif d < 64:
-                start = (full << d) & full
-            else:
-                start = torch.zeros_like(full)
-            right = start.expand(B)
+            # start column i == n: ones at d == 0, ones << d after
+            start = bv.const(ones_shifted(W, d)).expand(NW, B)
+            right = start
             cols = [right]
             if d == 0:
                 for i in range(W - 1, -1, -1):
-                    mat = ((right << 1) & full) | pmi[i]
+                    mat = bv.shl1(right) | pmi[i]
                     right = torch.where(is_start[i], start, mat)
                     cols.append(right)
             else:
                 # sub & ins & del for every column at once, from row d-1:
                 # (R[d-1][i+1] << 1) & (R[d-1][i] << 1) & R[d-1][i+1]
-                ins = (ff << 1) & full
+                ins = bv.shl1(ff)
                 x = ins[1:] & ins[:-1] & ff[1:]
                 for i in range(W - 1, -1, -1):
-                    # x is masked to W bits, so (right << 1) needs no mask
-                    c = ((right << 1) | pmi[i]) & x[i]
+                    c = (bv.shl1(right) | pmi[i]) & x[i]
                     right = torch.where(is_start[i], start, c)
                     cols.append(right)
-            ff = torch.stack(cols[::-1])  # (W+1, B), column-major
-            R[d] = ff[:COLS]
-            hit = ~found & (((right >> probe) & 1) == 0)
+            ff = torch.stack(cols[::-1])  # (W+1, NW, B), column-major
+            rows.append(ff[:COLS])
+            searching = ~found
+            work[0] += torch.where(searching, n + 1, 0)
+            hit = searching & (bv.bit(right, probe) == 0)
             wed = torch.where(hit, d, wed)
             found = found | hit
             if bool(found.all()):
                 break
+        Rf = torch.stack(rows).reshape(-1)  # [row][col][word][lane]
 
         # ---- traceback (pyref.genasm_tb), one step per iteration ----
         tb = act & found
@@ -287,21 +339,25 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
             val = ((cur_op << ENTRY_OP_SHIFT) | cur_cnt).to(torch.int16)
             ent.scatter_(0, torch.where(flush, nfl, NE)[None], val[None])
 
+        def r_bit(row, column, p):
+            """Bit p of R[row][column], read one word per lane."""
+            at = ((row + column.clamp(max=COLS - 1)) * NW + (p >> 6)) * B
+            return (Rf[at + lane] >> (p & (WORD - 1))) & 1
+
         for _ in range(2 * TB):  # every step consumes text or pattern
             run = tb & (j < m) & (i < TB) & (j < TB)
             if not bool(run.any()):
                 break
+            work[1] += run.long()
             i_limit = i >= n
             d_limit = dd == 0
-            jlast = j == m - 1  # pyref.py:261-266 special case
+            jlast = j == m - 1  # pyref.py genasm_tb's j == m-1 case
             row = (dd - 1).clamp(min=0) * COLS
-            va = Rf[(row + i.clamp(max=COLS - 1)) * B + lane]
-            vb = Rf[(row + (i + 1).clamp(max=COLS - 1)) * B + lane]
             b_j = (m - 1 - j).clamp(min=0)
             b_j1 = (m - 2 - j).clamp(min=0)
-            z_ins = ((va >> b_j1) & 1) == 0
-            z_del = ((vb >> b_j) & 1) == 0
-            z_sub = ((vb >> b_j1) & 1) == 0
+            z_ins = r_bit(row, i, b_j1) == 0
+            z_del = r_bit(row, i + 1, b_j) == 0
+            z_sub = r_bit(row, i + 1, b_j1) == 0
             can_ins = ~d_limit & (jlast | z_ins)
             can_del = ~d_limit & ~jlast & ~i_limit & z_del
             can_sub = ~d_limit & ~i_limit & (jlast | z_sub)
@@ -337,4 +393,4 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     incomplete = (failed == 0) & (read_idx < plen)
     failed = failed | torch.where(incomplete, FAIL_INCOMPLETE, 0).to(
         torch.int32)
-    return BatchResult(ed.to(torch.int32), failed, entries, counts)
+    return BatchResult(ed.to(torch.int32), failed, entries, counts, work)

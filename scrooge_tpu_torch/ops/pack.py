@@ -2,8 +2,8 @@
 
 Port of ``engine_pallas.pack_2bit`` / ``pack_2bit_host``
 (scrooge_tpu/ops/engine_pallas.py:209-238): char k of a word sits in bits
-[2k, 2k+2). Host packing goes through ``scrooge_tpu.native`` so the words
-are byte-identical to what the JAX package uploads.
+[2k, 2k+2). Host packing goes through the port's ``native`` helpers, whose
+words are byte-identical to what the JAX package uploads.
 
 Words travel as ``int32`` tensors holding the uint32 bit pattern: torch's
 unsigned 32-bit dtype cannot shift on the CPU. A right shift of such a word
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scrooge_tpu import native
+from .. import native
 
 CHARS_PER_WORD = 16
 
@@ -39,13 +39,8 @@ def pack_2bit(codes: torch.Tensor) -> torch.Tensor:
 def encode_pack_host(seqs, width: int) -> np.ndarray:
     """ASCII rows -> (len(seqs), ceil(width/16)) uint32 words in one native
     pass. Raises ValueError on non-ACGT and RuntimeError when the native
-    helpers cannot be built (no g++)."""
-    out = native.encode_pack_strs(list(seqs), width)
-    if out is None:
-        raise RuntimeError(
-            "scrooge_tpu.native could not be built (g++ missing); the torch "
-            "port needs it to encode and pack sequences")
-    return out
+    helpers cannot be built."""
+    return native.encode_pack_strs(list(seqs), width)
 
 
 def to_device(words: np.ndarray, device) -> torch.Tensor:

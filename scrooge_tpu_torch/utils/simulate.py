@@ -1,0 +1,92 @@
+"""Synthetic long-read workload generator (PBSIM2-style).
+
+The port's own copy of ``simulate_dataset`` from
+``scrooge_tpu/utils/simulate.py``: the same seed gives the same genome and
+reads, draw for draw. Reads are windows of a random genome with
+substitutions, insertions and deletions at ``1 - accuracy`` per base in
+PBSIM2's CLR ratio sub:ins:del = 6:55:39, each with one candidate location
+at its true start.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+from ..datamodel import CandidateLocation, Genome, Read
+
+_BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def random_genome(length: int, seed: int = 0, name: str = "chr1") -> Genome:
+    rng = np.random.default_rng(seed)
+    content = rng.integers(0, 4, length)
+    return Genome(content=_BASES[content].tobytes().decode("ascii"),
+                  chromosome_starts={name: 0})
+
+
+def _mutate(rng: np.random.Generator, codes: np.ndarray, error_rate: float,
+            ratio=(6, 55, 39)) -> np.ndarray:
+    """Sub/ins/del edits at ``error_rate`` per base: substitutions rotate
+    the code, insertions keep the base and append a random one, deletions
+    drop it."""
+    n = len(codes)
+    p_sub = error_rate * ratio[0] / sum(ratio)
+    p_ins = error_rate * ratio[1] / sum(ratio)
+    p_del = error_rate * ratio[2] / sum(ratio)
+    u = rng.random(n)
+    kind = np.select(
+        [u < p_sub, u < p_sub + p_ins, u < p_sub + p_ins + p_del],
+        [1, 2, 3], default=0)
+    codes = np.where(kind == 1, (codes + rng.integers(1, 4, n)) % 4,
+                     codes).astype(np.uint8)
+    reps = np.where(kind == 3, 0, np.where(kind == 2, 2, 1))
+    out = np.repeat(codes, reps)
+    # the second copy of each insertion becomes a random base
+    ins_ends = np.cumsum(reps)[kind == 2] - 1
+    if len(ins_ends):
+        out[ins_ends] = rng.integers(0, 4, len(ins_ends))
+    if not len(out):
+        out = rng.integers(0, 4, 1).astype(np.uint8)
+    return out.astype(np.uint8)
+
+
+@dataclass
+class SimulatedDataset:
+    genome: Genome
+    reads: List[Read]
+
+
+def simulate_reads(genome: Genome, num_reads: int, read_len: int,
+                   accuracy: float = 0.95, seed: int = 0) -> List[Read]:
+    """Reads with one candidate location each, at the true sampling start
+    (single-chromosome genomes)."""
+    rng = np.random.default_rng(seed)
+    lut = np.zeros(256, np.uint8)
+    for i, b in enumerate(b"ACGT"):
+        lut[b] = i
+    gcodes = lut[np.frombuffer(genome.content.encode("ascii"), np.uint8)]
+    glen = len(gcodes)
+    chrom = next(iter(genome.chromosome_starts), "chr1")
+    reads = []
+    for r in range(num_reads):
+        start = int(rng.integers(0, max(1, glen - read_len)))
+        mutated = _mutate(rng, gcodes[start : start + read_len], 1.0 - accuracy)
+        desc = f"sim_read_{r}"
+        loc = CandidateLocation(read_description=desc, chromosome=chrom,
+                                start_in_chromosome=start,
+                                start_in_reference=start, strand=True)
+        reads.append(Read(description=desc,
+                          content=_BASES[mutated].tobytes().decode("ascii"),
+                          locations=[loc]))
+    return reads
+
+
+def simulate_dataset(genome_len: int = 1_000_000, num_reads: int = 1000,
+                     read_len: int = 10_000, accuracy: float = 0.95,
+                     seed: int = 0) -> SimulatedDataset:
+    genome = random_genome(genome_len, seed=seed, name="ref")
+    return SimulatedDataset(genome=genome, reads=simulate_reads(
+        genome, num_reads, read_len, accuracy, seed=seed + 1))

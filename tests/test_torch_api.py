@@ -7,6 +7,7 @@ are held bit-exactly against the parity corpus (the original C++'s
 outputs), the reference's golden cases and pyref.
 """
 
+import dataclasses
 import gzip
 import os
 import random
@@ -20,11 +21,15 @@ torch = pytest.importorskip("torch")
 import scrooge_tpu  # noqa: E402
 import scrooge_tpu_torch as st  # noqa: E402
 from scrooge_tpu import pyref  # noqa: E402
-from scrooge_tpu.api import AlignmentError, _prepare_genome_host  # noqa: E402
+from scrooge_tpu.api import _prepare_genome_host  # noqa: E402
 from scrooge_tpu.cli.tests_cli import (GOLDEN_DISTANCES,  # noqa: E402
                                        GOLDEN_READS, GOLDEN_REFERENCE)
-from scrooge_tpu_torch import (AlignConfig, CandidateLocation,  # noqa: E402
-                               Genome, Read)
+from scrooge_tpu.config import AlignConfig as JaxAlignConfig  # noqa: E402
+from scrooge_tpu.datamodel import Genome as JaxGenome  # noqa: E402
+from scrooge_tpu.utils import simulate as jax_simulate  # noqa: E402
+from scrooge_tpu_torch import (AlignConfig, AlignmentError,  # noqa: E402
+                               CandidateLocation, Genome, Read)
+from scrooge_tpu_torch.utils import simulate as port_simulate  # noqa: E402
 
 CORPUS = os.path.join(os.path.dirname(__file__), "data",
                       "parity_corpus.tsv.gz")
@@ -49,10 +54,14 @@ def _random_cases(seed, count, max_len=200):
 
 
 @pytest.mark.parametrize("wko", [(16, 16, 9), (32, 32, 17), (64, 48, 33),
-                                 (64, 64, 2), (64, 64, 33), (64, 64, 48)])
+                                 (64, 64, 2), (64, 64, 33), (64, 64, 48),
+                                 (96, 96, 49), (128, 128, 65),
+                                 (192, 192, 97), (256, 256, 129)])
 def test_corpus_parity(wko):
-    """Every W <= 64 corpus config, queries up to 600 bp. (64, 64, 2) has
-    tb_limit 62 and takes the uint16 run path instead of the tokens."""
+    """Every corpus config, queries up to 600 bp. (64, 64, 2) has
+    tb_limit 62 and takes the uint16 run path instead of the tokens, as
+    do the wide configs (tb_limit 47 to 127, bitvectors of 2 to 4
+    words)."""
     cases = []
     with gzip.open(CORPUS, "rt") as f:
         for line in f:
@@ -77,11 +86,15 @@ def test_golden_cases_four_way():
                    locations=[CandidateLocation(start_in_reference=0)])
               for d, q in GOLDEN_READS]
     pyref_cfg = AlignConfig(backend="pyref")
+    jax_cfg = JaxAlignConfig(backend="pyref")
+    jax_genome = JaxGenome(content=GOLDEN_REFERENCE)
     results = [
         st.align_pairs(refs, reads, device=CPU),
         st.align_reads(genome, mapped, device=CPU),
-        scrooge_tpu.align_all(refs, reads, config=pyref_cfg),
-        scrooge_tpu.align_all(genome, mapped, config=pyref_cfg),
+        scrooge_tpu.align_all(refs, reads, config=jax_cfg),
+        scrooge_tpu.align_all(jax_genome, mapped, config=jax_cfg),
+        st.align_all(refs, reads, config=pyref_cfg),
+        st.align_all(genome, mapped, config=pyref_cfg),
     ]
     for res in results:
         assert [a.edit_distance for a in res] == GOLDEN_DISTANCES
@@ -115,7 +128,7 @@ def test_random_pairs_and_reads_match_pyref():
     assert [(a.edit_distance, a.cigar) for a in got] == want
 
 
-@pytest.mark.parametrize("wko", [(64, 64, 33), (64, 64, 2)])
+@pytest.mark.parametrize("wko", [(64, 64, 33), (64, 64, 2), (128, 128, 65)])
 def test_return_packed_matches_strings(wko):
     W, K, O = wko
     cfg = AlignConfig(W=W, K=K, O=O, batch_tile=128)
@@ -175,8 +188,8 @@ def test_failed_lanes_are_retried_on_pyref(monkeypatch, packed):
 
 
 def test_unsupported_configs_and_backends():
-    with pytest.raises(NotImplementedError, match="W > 64"):
-        st.align_pairs(["ACGT"], ["ACGT"], AlignConfig(W=128, K=128, O=65),
+    with pytest.raises(NotImplementedError, match="W > 256"):
+        st.align_pairs(["ACGT"], ["ACGT"], AlignConfig(W=320, K=320, O=161),
                        device=CPU)
     for backend in ("pallas", "xla"):
         with pytest.raises(ValueError):
@@ -198,16 +211,81 @@ def test_cuda_device_without_cuda_raises():
 
 
 def test_prepared_genome_words_match_jax_package():
+    """The packed genome is the state the two packages share: the same
+    string gives the same words, passed between them as numpy."""
     rng = random.Random(6)
-    genome = Genome(content="".join(rng.choice("ACGT") for _ in range(5003)))
-    want = _prepare_genome_host(genome, "pallas")[0]
-    for src in (genome, scrooge_tpu.api.prepare_genome(genome)):
-        prepared = st.prepare_genome(src)
-        words = prepared.device_words(CPU)
-        assert words.dtype == torch.int32
-        np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
-    read = Read(description="r", content=genome.content[100:300],
+    content = "".join(rng.choice("ACGT") for _ in range(5003))
+    want = _prepare_genome_host(JaxGenome(content=content), "pallas")[0]
+    genome = Genome(content=content)
+    prepared = st.prepare_genome(genome)
+    words = prepared.device_words(CPU)
+    assert words.dtype == torch.int32
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    read = Read(description="r", content=content[100:300],
                 locations=[CandidateLocation(start_in_reference=100)])
-    for src in (prepared, scrooge_tpu.api.prepare_genome(genome)):
+    for src in (genome, prepared):
         a = st.align_all(src, [read], device=CPU)[0]
         assert (a.edit_distance, a.cigar) == (0, "31=" * 6 + "14=")
+    with pytest.raises(TypeError):
+        st.align_reads(scrooge_tpu.api.prepare_genome(JaxGenome(content)),
+                       [read], device=CPU)
+
+
+def test_align_config_maps_across_packages():
+    for kw in ({}, dict(W=128, K=100, O=65, batch_tile=256,
+                        early_termination=False, backend="pyref",
+                        tb_cap_override=7, margin_override=3)):
+        jax_cfg = JaxAlignConfig(**kw)
+        cfg = AlignConfig(**dataclasses.asdict(jax_cfg))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_cfg)
+        assert JaxAlignConfig(**dataclasses.asdict(cfg)) == jax_cfg
+        assert (cfg.tb_limit, cfg.columns, cfg.rows) == (
+            jax_cfg.tb_limit, jax_cfg.columns, jax_cfg.rows)
+        assert [cfg.max_windows(n) for n in (0, 1, 999, 10_000)] == [
+            jax_cfg.max_windows(n) for n in (0, 1, 999, 10_000)]
+    for bad in (dict(W=1), dict(O=64), dict(K=0), dict(batch_tile=100),
+                dict(tb_cap_override=65), dict(margin_override=65)):
+        for cls in (AlignConfig, JaxAlignConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
+
+
+def test_simulate_dataset_matches_jax_package():
+    kw = dict(genome_len=20_000, num_reads=40, read_len=900, accuracy=0.9,
+              seed=7)
+    want = jax_simulate.simulate_dataset(**kw)
+    got = port_simulate.simulate_dataset(**kw)
+    assert dataclasses.asdict(got.genome) == dataclasses.asdict(want.genome)
+    assert [dataclasses.asdict(r) for r in got.reads] == [
+        dataclasses.asdict(r) for r in want.reads]
+
+
+def test_pyref_backend_matches_jax_pyref_backend():
+    """The port's own scalar-oracle backend against the JAX package's,
+    both interfaces, strings and packed, including its errors."""
+    cases = _random_cases(12, 12, max_len=150)
+    texts, queries = [t for t, _ in cases], [q for _, q in cases]
+    cfg = AlignConfig(W=32, K=32, O=17, backend="pyref")
+    jcfg = JaxAlignConfig(W=32, K=32, O=17, backend="pyref")
+    got = st.align_pairs(texts, queries, cfg)
+    assert got == [st.Alignment(a.cigar, a.edit_distance)
+                   for a in scrooge_tpu.align_all(texts, queries, config=jcfg)]
+    packed = st.align_pairs(texts, queries, cfg, return_packed=True)
+    assert packed.to_alignments() == got
+    genome = Genome(content="".join(texts))
+    starts = np.cumsum([0] + [len(t) for t in texts[:-1]])
+    reads = [Read(description="r", content=q,
+                  locations=[CandidateLocation(start_in_reference=int(s))])
+             for q, s in zip(queries, starts)]
+    want = scrooge_tpu.align_all(JaxGenome(content=genome.content), reads,
+                                 config=jcfg)
+    assert [(a.edit_distance, a.cigar) for a in st.align_all(
+        genome, reads, config=cfg)] == [(a.edit_distance, a.cigar)
+                                        for a in want]
+    with pytest.raises(AlignmentError):
+        st.align_pairs(["C" * 32], ["A" * 32], AlignConfig(W=32, K=8, O=17,
+                                                           backend="pyref"))
+    bad = [Read(description="r", content="ACGT",
+                locations=[CandidateLocation(start_in_reference=-1)])]
+    with pytest.raises(ValueError, match="out of genome bounds"):
+        st.align_reads(genome, bad, cfg)

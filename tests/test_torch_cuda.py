@@ -12,6 +12,7 @@ import torch
 
 import scrooge_tpu_torch as st
 from scrooge_tpu_torch.ops import _cuda, compact, engine, pack
+from scrooge_tpu_torch.tools import kernel_lab
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +36,8 @@ def _batch(seed, B, T, P, rate=0.08):
 
 
 def _same(a, b):
-    for x, y in zip(a[:2] + a[3:], b[:2] + b[3:]):
+    """ed, failed and counts, then the runs after compaction."""
+    for x, y in zip(a[:2] + a[3:4], b[:2] + b[3:4]):
         assert torch.equal(x.cpu(), y.cpu())
     cap = int(a.counts.sum(0).max().item()) + 1
     ca, ta = compact.compact_entries(a.entries, a.counts, cap)
@@ -45,7 +47,8 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33), (16, 16, 9),
-                                 (64, 64, 2)])
+                                 (64, 64, 2), (96, 96, 49), (128, 128, 65),
+                                 (192, 192, 97), (256, 256, 129)])
 def test_kernel_matches_plain(cuda, wko):
     W, K, O = wko
     cfg = st.AlignConfig(W=W, K=K, O=O)
@@ -55,9 +58,10 @@ def test_kernel_matches_plain(cuda, wko):
             pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
             torch.from_numpy(plen).to(cuda))
     maxw = cfg.max_windows(360)
-    before = _cuda.GENASM_WINDOWS.launches
+    nw = engine.num_words(W)
+    before = _cuda.GENASM_WINDOWS.counts[nw]
     got = engine.align_batch(cfg, maxw, *args)
-    assert _cuda.GENASM_WINDOWS.launches == before + 1
+    assert _cuda.GENASM_WINDOWS.counts[nw] == before + 1
     B, Tw = args[0].shape
     base = torch.arange(B, dtype=torch.int64, device=cuda) * (Tw * 16)
     want = engine.align_windows_plain(cfg, maxw, args[0], base, *args[1:])
@@ -65,8 +69,11 @@ def test_kernel_matches_plain(cuda, wko):
     _same(got, want)
 
 
-def test_kernel_mapped_matches_plain(cuda):
-    cfg = st.AlignConfig()
+@pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65),
+                                 (256, 256, 129)])
+def test_kernel_mapped_matches_plain(cuda, wko):
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O)
     rng = np.random.default_rng(2)
     G, B, P = 20000, 256, 700
     genome = rng.integers(0, 4, G, dtype=np.uint8)
@@ -98,3 +105,18 @@ def test_api_on_cuda(cuda):
     queries = [texts[0][3:300], texts[1][:150] + "GG", ""]
     on_card = st.align_pairs(texts, queries, device=cuda)
     assert on_card == st.align_pairs(texts, queries, device="cpu")
+
+
+@pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
+def test_fill_lab_kernel_matches_plain(cuda, variant):
+    m, n, pmi = (t.to(cuda) for t in kernel_lab.from_lab_layout(
+        *kernel_lab.lab_inputs(2048)))
+    n[::7] = 40  # start columns inside the window for some lanes
+    before = _cuda.GENASM_FILL_LAB.counts[kernel_lab.VARIANTS.index(variant)]
+    got = kernel_lab.run(variant, 3, m, n, pmi, device=cuda)
+    want = kernel_lab.run_plain(variant, 3, m, n, pmi)
+    torch.cuda.synchronize()
+    assert _cuda.GENASM_FILL_LAB.counts[
+        kernel_lab.VARIANTS.index(variant)] == before + 1
+    assert torch.equal(got.wed.cpu(), want.wed.cpu())
+    assert int(got.total) == int(want.total)

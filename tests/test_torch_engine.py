@@ -32,20 +32,28 @@ def _mutate(rng, seq, rate):
     return out
 
 
-def _batch(seed, B, T, P, rate=0.08):
+def _batch(seed, B, T, P, rate=0.08, short_plen=None):
     """Texts (B, T) and mutated patterns (B, P) as 2-bit codes, with
-    ragged lengths, an empty read and a text that runs out first."""
+    ragged lengths, an empty read and a text that runs out first.
+
+    With ``short_plen``, every other text is whole (the reads end inside
+    them) and the one text that runs out does so against a read of
+    ``short_plen`` chars: the d-search of that lane still crosses the
+    first word boundaries without searching all of a wide K."""
     rng = np.random.default_rng(seed)
     text = rng.integers(0, 4, (B, T), dtype=np.uint8)
     pattern = np.zeros((B, P), np.uint8)
-    tlen = rng.integers(1, T + 1, B).astype(np.int32)
+    if short_plen is None:
+        tlen = rng.integers(1, T + 1, B).astype(np.int32)
+    else:
+        tlen = np.full(B, T, np.int32)
     plen = np.zeros(B, np.int32)
     for b in range(B):
         q = _mutate(rng, text[b, : tlen[b]], rate)[: int(rng.integers(0, P + 1))]
         pattern[b, : len(q)] = q
         plen[b] = len(q)
     plen[0] = 0
-    tlen[1], plen[1] = 5, P  # text exhausted before the read
+    tlen[1], plen[1] = 5, short_plen or P  # text exhausted before the read
     return text, tlen, pattern, plen
 
 
@@ -74,12 +82,21 @@ def test_pack_2bit_matches_jax_packing():
     np.testing.assert_array_equal(got, engine_pallas.pack_2bit_host(codes))
 
 
-@pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33), (16, 16, 9)])
+@pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33), (16, 16, 9),
+                                 (96, 96, 49), (128, 128, 65),
+                                 (192, 192, 97), (256, 256, 129)])
 def test_plain_engine_matches_xla_engine(wko):
+    """W <= 64 holds a bitvector in one word; 96 and 128 in two, 192 in
+    three and 256 in four. Each batch has a lane whose text runs out
+    after 5 chars, so its d-search passes every word boundary."""
     W, K, O = wko
     cfg = AlignConfig(W=W, K=K, O=O)
-    text, tlen, pattern, plen = _batch(11 + W, 128, 160, 128)
-    maxw = cfg.max_windows(128)
+    if W <= 64:
+        P, text, tlen, pattern, plen = 128, *_batch(11 + W, 128, 160, 128)
+    else:
+        P, text, tlen, pattern, plen = 260, *_batch(11 + W, 128, 300, 260,
+                                                    short_plen=140)
+    maxw = cfg.max_windows(P)
     rx = engine_xla.align_batch(cfg, maxw, text, tlen, pattern, plen)
     rt = engine.align_batch(cfg, maxw, pack.pack_2bit(_port(text)),
                             _port(tlen), pack.pack_2bit(_port(pattern)),
@@ -88,9 +105,12 @@ def test_plain_engine_matches_xla_engine(wko):
     _assert_same(rx, rt)
 
 
-def test_plain_engine_mapped_matches_xla_engine():
-    cfg = AlignConfig(W=64, K=64, O=33)
-    rng = np.random.default_rng(21)
+@pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65),
+                                 (256, 256, 129)])
+def test_plain_engine_mapped_matches_xla_engine(wko):
+    W, K, O = wko
+    cfg = AlignConfig(W=W, K=K, O=O)
+    rng = np.random.default_rng(21 + W)
     G, B, P = 4000, 128, 200
     genome = rng.integers(0, 4, G, dtype=np.uint8)
     starts = rng.integers(0, G - P, B).astype(np.int64)

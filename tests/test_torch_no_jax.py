@@ -1,6 +1,11 @@
-"""The torch port runs without JAX: the card's machine has none."""
+"""The torch port stands alone: it loads neither JAX nor the JAX package.
+
+The card's machine has no JAX, and the port keeps its own copies of what
+it needs from ``scrooge_tpu``, even of modules there that load no JAX.
+"""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -9,32 +14,64 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import scrooge_tpu_torch as st
-a = st.align_pairs(["AAAACCCCGGGGTTTT"], ["CCCCGGGGTTTTAAAA"], device="cpu")
-assert (a[0].edit_distance, a[0].cigar) == (8, "4D12=4I"), a
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+from scrooge_tpu_torch.tools import kernel_lab
+
+for backend in ("auto", "pyref"):
+    cfg = st.AlignConfig(backend=backend)
+    a = st.align_pairs(["AAAACCCCGGGGTTTT"], ["CCCCGGGGTTTTAAAA"], cfg,
+                       device="cpu")
+    assert (a[0].edit_distance, a[0].cigar) == (8, "4D12=4I"), a
+    g = st.Genome(content="ACGTTGCA" * 40)
+    r = st.Read(description="r", content="ACGTTGCA" * 20,
+                locations=[st.CandidateLocation(start_in_reference=8)])
+    p = st.align_reads(g, [r], cfg, return_packed=True, device="cpu")
+    assert p.to_alignments() == [st.Alignment("31=31=31=31=31=5=", 0)], p
+lab = kernel_lab.run_plain("full", 2,
+                           *kernel_lab.from_lab_layout(
+                               *kernel_lab.lab_inputs(128)))
+assert int(lab.total) == 2 * int(lab.wed.sum()) > 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "scrooge_tpu"))
 assert not loaded, loaded
 print("ok")
 """
+
+# an import of the JAX package or of JAX by any name; the word boundary
+# keeps scrooge_tpu_torch from matching
+_FORBIDDEN = re.compile(
+    r"^\s*(from|import)\s.*\b(scrooge_tpu|jax|jaxlib)\b(?!_)"
+    r"|import_module\(\s*['\"](scrooge_tpu|jax)\b(?!_)"
+    r"|__import__\(\s*['\"](scrooge_tpu|jax)\b(?!_)")
 
 
 def test_port_imports_and_aligns_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
 
 def test_port_sources_never_import_jax():
-    pkg = os.path.join(ROOT, "scrooge_tpu_torch")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "scrooge_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 10
     offenders = []
-    for dirpath, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                path = os.path.join(dirpath, name)
-                with open(path) as f:
-                    for n, line in enumerate(f, 1):
-                        s = line.strip()
-                        if s.startswith(("import jax", "from jax")):
-                            offenders.append(f"{path}:{n}")
+    for path in paths:
+        with open(path) as f:
+            for n, line in enumerate(f, 1):
+                if _FORBIDDEN.search(line):
+                    offenders.append(f"{path}:{n}: {line.strip()}")
     assert offenders == []
+
+
+def test_forbidden_pattern_tells_the_packages_apart():
+    assert _FORBIDDEN.search("from scrooge_tpu import pyref")
+    assert _FORBIDDEN.search("import scrooge_tpu.native as native")
+    assert _FORBIDDEN.search("    from scrooge_tpu.cigar import x")
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("importlib.import_module('scrooge_tpu.api')")
+    assert not _FORBIDDEN.search("import scrooge_tpu_torch as st")
+    assert not _FORBIDDEN.search("from scrooge_tpu_torch.ops import engine")
+    assert not _FORBIDDEN.search("# port of scrooge_tpu/api.py")

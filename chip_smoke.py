@@ -5,19 +5,26 @@
 Phases, one line each:
   1. toolchain: torch, CUDA, nvcc, triton, and the card as nvidia-smi
      reports it (its own line);
-  2. build: compile both kernels from csrc/ with nvcc, one process each,
-     started together; registers and spills of every instantiation;
+  2. build: compile the three kernel sources from csrc/ with nvcc, one
+     process each, started together; registers and spills of every
+     instantiation;
   3. kernel against plain: the window kernel and the plain torch engine on
      the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33,
-     32/32/17, 96/96/49, 128/128/65, 192/192/97 and 256/256/129 (one to
-     four 64-bit words a bitvector), then the main path's own tile
-     (16384 reads of 10 kbp at 64/64/33); every output must be identical;
+     32/32/17, 96/96/49, 128/128/65, 192/192/97 and 256/256/129 (W <= 64
+     on the one-word kernel genasm_windows1.cu, two to four words on
+     genasm_windows.cu); then 512 unrelated pairs of 1 kbp at 64/64/33 (a
+     quarter of the texts run out: rows up to K and the row pair that
+     computes row K+1) and at 64/16/33 (FAIL_TB lanes); then the main
+     path's own tile (16384 reads of 10 kbp at 64/64/33); every output
+     must be identical;
   4. main path: align_reads on the bench workload (simulate_dataset(
      1 Mbp genome, 16384 reads x 10 kbp, 95 % accuracy, seed 7), W=64
-     K=64 O=33, one tile of 16384), strings then packed; the kernel's
-     launch count must grow, both outputs must agree, sampled pairs must
-     equal pyref and carry valid CIGARs;
-  5. kernel-only time of the same tile, CUDA events;
+     K=64 O=33, one tile of 16384), strings then packed; the one-word
+     kernel's launch count must grow and the NW = 1 instantiation of
+     genasm_windows.cu (the former one-word kernel) must not launch, both
+     outputs must agree, sampled pairs must equal pyref and carry valid
+     CIGARs;
+  5. kernel-only time of the same tile, CUDA events, 3 x 3 calls;
   6. the README's quick-start pair;
   7. wide path: the same tile at W=128 K=128 O=65 (two words), kernel
      against plain, then align_reads checked as in phase 4, and its
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 WINDOWS_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows.cu"
+WINDOWS1_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows1.cu"
 WINDOWS_REPLACES = "scrooge_tpu/ops/engine_pallas.py:901"
 LAB_SOURCE = "scrooge_tpu_torch/csrc/genasm_fill_lab.cu"
 LAB_REPLACES = "tools/kernel_lab.py:107"
@@ -78,6 +86,19 @@ def nvcc_release() -> str:
                  for ln in out.splitlines() if "release" in ln), "unknown")
 
 
+def kernel_name(mangled: str) -> str:
+    """'genasm_windows_kernel<2>' from a mangled entry name: the
+    length-prefixed identifier that ends in '_kernel', and its template
+    argument."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        at = m.start() + len(m.group(1))
+        name = mangled[at : at + int(m.group(1))]
+        if name.endswith("_kernel"):
+            tmpl = re.match(r"ILi(\d+)E", mangled[at + len(name):])
+            return name + (f"<{tmpl.group(1)}>" if tmpl else "")
+    return mangled
+
+
 def ptxas_summary(log: str) -> str:
     """Registers and spills per compiled function of an nvcc -Xptxas -v
     log, e.g. 'genasm_windows_kernel<2>: 96 regs, 0 B spill'."""
@@ -85,11 +106,7 @@ def ptxas_summary(log: str) -> str:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            mangled = m.group(1)
-            base = re.findall(r"[a-z_]+_kernel", mangled)
-            tmpl = re.search(r"ILi(\d+)E", mangled)
-            name = (base[-1] if base else mangled) + (
-                f"<{tmpl.group(1)}>" if tmpl else "")
+            name = kernel_name(m.group(1))
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
@@ -172,9 +189,12 @@ def window_bound(cfg, maxw, args, res, ops_rate):
     work counters; the kernel fills the same cells) at 2 x (7 NW + 6 (NW-1))
     INT32 ops (the d >= 1 recurrence on NW 64-bit words, each 64-bit
     logic op or shift two 32-bit ops, d = 0 cells counted alike), plus
-    TB_STEP_OPS a traceback step. Bytes: the packed text and pattern
-    chars read once, lengths and bases, every run, count and result
-    written once."""
+    TB_STEP_OPS a traceback step. That count is high, so the bound is
+    long: the INT32 rate counts instructions, one LOP3 does any
+    three-input logic and a shift can serve two cells, so a one-word cell
+    takes about 8 instructions, not 14. Bytes: the packed text and
+    pattern chars read once, lengths and bases, every run, count and
+    result written once."""
     from scrooge_tpu_torch.ops import engine
 
     nw = engine.num_words(cfg.W)
@@ -193,19 +213,42 @@ def window_bound(cfg, maxw, args, res, ops_rate):
                           bytes=nbytes))
 
 
+def unrelated_pairs(cfg, seed, dev, B=512, length=1000):
+    """B pairs whose text and read are drawn independently, staged; a
+    quarter of the texts stop after 300 chars, so their later windows have
+    no text (n = 0) and a window distance of m."""
+    from scrooge_tpu_torch.ops import pack
+
+    rng = np.random.default_rng(seed)
+    text = rng.integers(0, 4, (B, length + 100), dtype=np.uint8)
+    pattern = rng.integers(0, 4, (B, length), dtype=np.uint8)
+    tlen = np.full(B, length + 100, np.int32)
+    tlen[::4] = 300
+    plen = rng.integers(length - 50, length + 1, B).astype(np.int32)
+    tw = pack.pack_2bit(torch.from_numpy(text)).to(dev)
+    base = torch.arange(B, dtype=torch.int64, device=dev) * (tw.shape[1] * 16)
+    maxw = -(-cfg.max_windows(int(plen.max())) // 32) * 32
+    return maxw, (tw, base, torch.from_numpy(tlen).to(dev),
+                  pack.pack_2bit(torch.from_numpy(pattern)).to(dev),
+                  torch.from_numpy(plen).to(dev))
+
+
 def compare(cfg, maxw, args, label):
     """Kernel wrapper and plain engine on the same device tensors."""
     from scrooge_tpu_torch.ops import engine
 
-    engine.align_windows(cfg, maxw, *args)  # warm the launch path
+    engine.align_windows(cfg, maxw, *args)  # build and warm up
     got, ms = timed(engine.align_windows, cfg, maxw, *args)
     want, plain_ms = timed(engine.align_windows_plain, cfg, maxw, *args)
     err = max_abs_diff(got, want)
     failed = int((got.failed != 0).sum().item())
-    phase("kernel-vs-plain", shape=label, W=cfg.W, K=cfg.K, O=cfg.O,
-          NW=engine.num_words(cfg.W), B=int(args[4].shape[0]), maxw=maxw,
-          kernel_ms=f"{ms:.3f}", plain_ms=f"{plain_ms:.3f}",
-          max_abs_err=err, tolerance=0, failed_lanes=failed)
+    phase("kernel-vs-plain", shape=label,
+          kernel=engine.window_kernel(cfg).source, W=cfg.W,
+          K=cfg.K, O=cfg.O, NW=engine.num_words(cfg.W),
+          B=int(args[4].shape[0]), maxw=maxw, kernel_ms=f"{ms:.3f}",
+          plain_ms=f"{plain_ms:.3f}", max_abs_err=err, tolerance=0,
+          failed_lanes=failed,
+          fail_tb_lanes=int((got.failed & engine.FAIL_TB != 0).sum().item()))
     if err != 0:
         raise AssertionError(f"kernel and plain engine differ ({label})")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, plain=want)
@@ -226,16 +269,19 @@ def packed_cigars(packed):
 
 
 def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
-    """align_reads through the public API, strings then packed, with the
-    window kernel's counts set to 0 just before and read just after;
+    """align_reads through the public API, strings then packed, with both
+    window kernels' counts set to 0 just before and read just after;
     checks both outputs agree, ``nsample`` pairs (the longest read among
-    them) equal pyref and ``ncigar`` CIGARs are valid."""
+    them) equal pyref and ``ncigar`` CIGARs are valid. Returns the counts,
+    {kernel: {key: launches}}."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch import pyref
     from scrooge_tpu_torch.cigar import is_valid_cigar
     from scrooge_tpu_torch.ops import _cuda
 
-    _cuda.GENASM_WINDOWS.counts.clear()
+    window_kernels = (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS)
+    for k in window_kernels:
+        k.counts.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     strs, stats = st.align_reads(prepared, ds.reads, cfg, return_stats=True,
@@ -246,8 +292,8 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
                                     return_stats=True, return_packed=True,
                                     device=dev)
     pwall = time.perf_counter() - t0
-    counts = dict(_cuda.GENASM_WINDOWS.counts)
-    if sum(counts.values()) < 1:
+    counts = {k: dict(k.counts) for k in window_kernels}
+    if sum(sum(c.values()) for c in counts.values()) < 1:
         raise AssertionError(f"{label}: the path never launched the kernel")
     n = len(ds.reads)
     if [a.cigar for a in strs] != packed_cigars(packed) or not np.array_equal(
@@ -273,7 +319,8 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
                               r.locations[0].start_in_reference):
             raise AssertionError(f"{label}: pair {i} has an invalid CIGAR")
     phase(label, W=cfg.W, K=cfg.K, O=cfg.O, pairs=n,
-          launches=json.dumps(counts), retried_pairs=stats.retried_pairs,
+          launches=json.dumps({k.source: c for k, c in counts.items()}),
+          retried_pairs=stats.retried_pairs,
           pyref_exact=len(sample), valid_cigars=ncigar,
           wall_s=f"{wall:.3f}", aligns_per_s=f"{n / wall:.1f}",
           packed_wall_s=f"{pwall:.3f}",
@@ -388,6 +435,15 @@ def main() -> int:
         cfg = st.AlignConfig(W=W, K=K, O=O)
         maxw, args = random_pairs(cfg, W, dev)
         compare(cfg, maxw, args, "512x1kbp")
+    for K in (64, 16):
+        cfg = st.AlignConfig(W=64, K=K, O=33)
+        maxw, args = unrelated_pairs(cfg, 100 + K, dev)
+        want = compare(cfg, maxw, args, "512x1kbp-unrelated")["plain"]
+        # no window of m <= W = 64 chars needs more than 64 edits
+        fail_tb = int((want.failed & engine.FAIL_TB != 0).sum().item())
+        if (K == 16) != (fail_tb > 0):
+            raise AssertionError(f"unrelated pairs at K={K}: {fail_tb} "
+                                 "FAIL_TB lanes")
 
     cfg = st.AlignConfig(W=64, K=64, O=33, early_termination=True,
                          batch_tile=16384)
@@ -403,6 +459,9 @@ def main() -> int:
 
     # ---- 4. main path ----
     counts = {1: drive_path("main-path", cfg, ds, prepared, dev, 16, 512)}
+    if counts[1][_cuda.GENASM_WINDOWS].get(1, 0) != 0:
+        raise AssertionError("the main path launched the former one-word "
+                             "kernel")
 
     # ---- 5. kernel-only time ----
     kernel_only("kernel-only", staged, len(ds.reads))
@@ -432,19 +491,23 @@ def main() -> int:
                                 128)
 
     kernels = []
-    for nw, (c, sst, cmp) in sorted(windows.items()):
-        launches = counts[nw].get(nw, 0)
+    rows = [(nw, engine.window_kernel(c), c, sst, cmp, counts[nw])
+            for nw, (c, sst, cmp) in sorted(windows.items())]
+    for nw, kern, c, sst, cmp, cnt in rows:
+        launches = cnt[kern].get(nw, 0)
+        name = ("genasm_windows1[NW=1]" if kern is _cuda.GENASM_WINDOWS1
+                else f"genasm_windows[NW={nw}]")
         if launches < 1:
-            raise AssertionError(f"genasm_windows<{nw}> never launched on "
-                                 f"its path")
+            raise AssertionError(f"{name} never launched on its path")
         bound_ms, bound_by, detail = window_bound(c, sst[1], sst[2],
                                                   cmp["plain"], ops_rate)
-        phase("bound", kernel=f"genasm_windows[NW={nw}]", W=c.W,
-              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
-              **{k: v for k, v in detail.items()})
+        phase("bound", kernel=name, W=c.W, bound_ms=f"{bound_ms:.6f}",
+              bound_by=bound_by, **{k: v for k, v in detail.items()})
         kernels.append({
-            "name": f"genasm_windows[NW={nw}]", "route": "cuda",
-            "source": WINDOWS_SOURCE, "replaces": WINDOWS_REPLACES,
+            "name": name, "route": "cuda",
+            "source": (WINDOWS1_SOURCE if kern is _cuda.GENASM_WINDOWS1
+                       else WINDOWS_SOURCE),
+            "replaces": WINDOWS_REPLACES,
             "launches": launches, "max_abs_err": cmp["max_abs_err"],
             "ms": cmp["ms"], "plain_ms": cmp["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

@@ -6,9 +6,12 @@ Port of the JAX package's window engines:
   and the Pallas kernel ``slab_step_kernel`` -> ``_multi_window_kernel``
   (scrooge_tpu/ops/engine_pallas.py:367-1123), with its multiword helpers
   (``_mw_*``, ``_shl1_u32``, ``_ones_shifted_u32``, :241-334). On the card
-  this is one hand-written kernel, ``csrc/genasm_windows.cu``: one thread
-  per pair, one launch for all windows. It replaces the slab loop and the
-  per-pair segment copy.
+  this is one hand-written kernel launch for all windows, one thread per
+  pair, which replaces the slab loop and the per-pair segment copy:
+  ``csrc/genasm_windows1.cu`` for one-word bitvectors (W <= 64: window
+  set-up from packed words, the forefront in registers, the TPU kernel's
+  level traceback) and ``csrc/genasm_windows.cu`` for two to four words.
+  The choice follows the config alone.
 - ``engine_xla._window_step`` / ``_align_scan`` / ``align_batch[_mapped]``
   (scrooge_tpu/ops/engine_xla.py:105-443). ``align_windows_plain`` below is
   their lane-batched lockstep counterpart in torch ops. The CPU path and
@@ -164,34 +167,55 @@ def _check_inputs(text_words, text_base, text_len, pattern_words,
         raise ValueError("text_base and text_len must be (B,)")
 
 
+def window_kernel(cfg: AlignConfig):
+    """The CUDA kernel the config launches: genasm_windows1.cu for one
+    word (W <= 64), genasm_windows.cu for two to four."""
+    return (_cuda.GENASM_WINDOWS1 if num_words(cfg.W) == 1
+            else _cuda.GENASM_WINDOWS)
+
+
 def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
                         pattern_words, pattern_len) -> BatchResult:
     """Kernel wrapper: allocates outputs and scratch, launches once."""
     _check_inputs(text_words, text_base, text_len, pattern_words,
                   pattern_len)
+    kernel = window_kernel(cfg)
     dev = pattern_words.device
     B = int(pattern_len.shape[0])
     NE = entry_rows(cfg)
     NW = num_words(cfg.W)
-    # R: rows d <= K, columns i < W-O+1 (DENT), all NW words,
-    # lane-minor [row][col][word][lane]; the forefront [col][word][lane]
-    R = torch.empty((cfg.K + 1) * cfg.columns * NW * B, dtype=torch.int64,
-                    device=dev)
-    ff = torch.empty((cfg.W + 1) * NW * B, dtype=torch.int64, device=dev)
     ed = torch.empty(B, dtype=torch.int32, device=dev)
     failed = torch.empty(B, dtype=torch.int32, device=dev)
     entries = torch.zeros((max_windows, NE, B), dtype=torch.int16,
                           device=dev)
     counts = torch.empty((max_windows, B), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        _cuda.GENASM_WINDOWS.launch(
-            NW, text_words.data_ptr(), text_base.data_ptr(),
-            text_len.data_ptr(), pattern_words.data_ptr(),
-            int(pattern_words.shape[1]), pattern_len.data_ptr(), B, cfg.W,
-            cfg.K, cfg.O, int(max_windows), R.data_ptr(), ff.data_ptr(),
-            ed.data_ptr(), failed.data_ptr(), entries.data_ptr(),
+    common = (pattern_words.data_ptr(), int(pattern_words.shape[1]),
+              pattern_len.data_ptr(), B, cfg.W, cfg.K, cfg.O,
+              int(max_windows))
+    outs = (ed.data_ptr(), failed.data_ptr(), entries.data_ptr(),
             counts.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        if kernel is _cuda.GENASM_WINDOWS1:
+            # R: rows d <= K+1 (the row pair at d = K computes row K+1),
+            # columns i < W-O+1 (DENT), in blocks of 32 lanes
+            # [lane / 32][row][col][lane % 32]
+            R = torch.empty((cfg.K + 2) * cfg.columns * -(-B // 32) * 32,
+                            dtype=torch.int64, device=dev)
+            kernel.launch(NW, text_words.data_ptr(), text_words.numel(),
+                          text_base.data_ptr(), text_len.data_ptr(),
+                          *common, R.data_ptr(), *outs)
+        else:
+            # R: rows d <= K, columns i < W-O+1 (DENT), all NW words,
+            # lane-minor [row][col][word][lane]; the forefront
+            # [col][word][lane]
+            R = torch.empty((cfg.K + 1) * cfg.columns * NW * B,
+                            dtype=torch.int64, device=dev)
+            ff = torch.empty((cfg.W + 1) * NW * B, dtype=torch.int64,
+                             device=dev)
+            kernel.launch(NW, text_words.data_ptr(), text_base.data_ptr(),
+                          text_len.data_ptr(), *common, R.data_ptr(),
+                          ff.data_ptr(), *outs)
     return BatchResult(ed, failed, entries, counts)
 
 

@@ -1,0 +1,237 @@
+"""Window lab: where the one-word window kernel's time goes.
+
+Source variants of ``csrc/genasm_windows1.cu``, built with nvcc as the
+kernel itself is and launched through the same entry point on the same
+staged tile (the bench workload: 1 Mbp genome, 10 kbp reads at 95 %
+accuracy, seed 7, W=64 K=64 O=33):
+
+  full     the source as it is: the kernel the main path launches
+  clocks   full with SM clock reads (clock64) around each window's three
+           sections, set-up, fill and traceback, summed per lane
+  ch4      CH = 4 traceback offsets a batch of R loads (full has 8)
+  ch16     CH = 16
+  t32      32 threads a block (full has 64)
+
+A variant is the source with named text edits, each of which must match
+exactly once, so a change to the kernel that moves an anchor fails here
+rather than timing something else. No variant changes what the kernel
+computes: each must give full's output exactly. Samples of 3 calls are
+timed with CUDA events, the variants in turns.
+
+    python -m scrooge_tpu_torch.tools.window_lab [variant ...] \\
+        [--reads 16384]
+
+needs a CUDA card: there is no plain version of a timing variant.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import statistics
+import subprocess
+
+import torch
+
+from ..api import resolve_device
+from ..buildcache import BUILD_DIR
+from ..config import AlignConfig
+from ..ops import _cuda, engine
+
+VARIANTS = ("full", "clocks", "ch4", "ch16", "t32")
+SECTIONS = ("set-up", "fill", "traceback")
+
+
+def _before(anchor: str, text: str):
+    """An edit that puts ``text`` in front of the line ``anchor``."""
+    return anchor, text + anchor
+
+
+def _clock(k: int) -> str:
+    """Adds the SM cycles since the last clock read to section k."""
+    return (f"      {{ const long long c = clock64(); cyc[{k}] += "
+            "(unsigned long long)(c - c_at); c_at = c; }\n")
+
+
+# (anchor, replacement) pairs; each anchor must occur once in the source
+_EDITS = {
+    "full": (),
+    "clocks": (
+        _before("  for (int w = 0; w < max_windows; ++w) {\n",
+                "  unsigned long long cyc[3] = {0, 0, 0};  // by section\n"
+                "  long long c_at = 0;\n"),
+        _before("      // ---- (a) window set-up from packed words ----\n",
+                "      c_at = clock64();\n"),
+        _before("      // ---- (b) DP fill (pyref.genasm_dc), two rows a "
+                "pass ----\n", _clock(0)),
+        _before("      if (wed < 0) {\n", _clock(1)),
+        _before("        // ---- carry update (engine_xla.py:339-350) "
+                "----\n", _clock(2)),
+        # the sums go past the end of R, which the lab allocates 3 B longer
+        _before("  ed_out[b] = ed;\n",
+                "  uint64_t* cy = R + (size_t)((B + LB - 1) / LB) * (K + 2)"
+                " * row_stride;\n"
+                "  cy[b] = cyc[0];\n  cy[nb + b] = cyc[1];\n"
+                "  cy[2 * nb + b] = cyc[2];\n"),
+    ),
+    "ch4": (("constexpr int CH = 8;", "constexpr int CH = 4;"),),
+    "ch16": (("constexpr int CH = 8;", "constexpr int CH = 16;"),),
+    "t32": (("constexpr int THREADS = 64;", "constexpr int THREADS = 32;"),),
+}
+
+
+def variant_source(variant: str) -> str:
+    """The kernel source with ``variant``'s edits; raises ValueError when
+    an anchor does not occur exactly once."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
+    with open(os.path.join(_cuda.CSRC, _cuda.GENASM_WINDOWS1.source)) as f:
+        src = f.read()
+    for anchor, new in _EDITS[variant]:
+        if src.count(anchor) != 1:
+            raise ValueError(f"{variant}: anchor {anchor.strip()!r} occurs "
+                             f"{src.count(anchor)} times in the kernel")
+        src = src.replace(anchor, new)
+    return src
+
+
+def variant_kernel(variant: str) -> _cuda.CudaKernel:
+    """A CudaKernel for the variant's source, written under the build
+    directory; ``full`` is the kernel the engine launches."""
+    if variant == "full":
+        return _cuda.GENASM_WINDOWS1
+    path = os.path.join(BUILD_DIR, "window_lab",
+                        f"genasm_windows1_{variant}.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(variant_source(variant))
+    return _cuda.CudaKernel(path, _cuda.GENASM_WINDOWS1.symbol,
+                            _cuda.GENASM_WINDOWS1.argtypes[1:])
+
+
+def launch(kernel, cfg, maxw, args, extra: int = 0):
+    """One launch with the engine's scratch layout (R: K+2 rows, blocks
+    of 32 lanes) and ``extra`` * B more int64 words after R. Returns
+    (BatchResult, those extra words as an (extra, B) tensor)."""
+    tw, base, tlen, pw, plen = args
+    dev, B = pw.device, int(plen.shape[0])
+    ed = torch.empty(B, dtype=torch.int32, device=dev)
+    failed = torch.empty(B, dtype=torch.int32, device=dev)
+    entries = torch.zeros((maxw, engine.entry_rows(cfg), B),
+                          dtype=torch.int16, device=dev)
+    counts = torch.empty((maxw, B), dtype=torch.int32, device=dev)
+    nr = (cfg.K + 2) * cfg.columns * -(-B // 32) * 32
+    R = torch.empty(nr + extra * B, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        kernel.launch(1, tw.data_ptr(), tw.numel(), base.data_ptr(),
+                      tlen.data_ptr(), pw.data_ptr(), int(pw.shape[1]),
+                      plen.data_ptr(), B, cfg.W, cfg.K, cfg.O, int(maxw),
+                      R.data_ptr(), ed.data_ptr(), failed.data_ptr(),
+                      entries.data_ptr(), counts.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    return (engine.BatchResult(ed, failed, entries, counts),
+            R[nr:].view(extra, B))
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+
+
+def _ptxas(log: str) -> str:
+    regs = re.findall(r"Used (\d+) registers", log)
+    spill = re.findall(r"(\d+) bytes spill stores", log)
+    return (f"{regs[-1]} regs, {spill[-1]} B spill" if regs and spill
+            else "built before this run")
+
+
+def _max_sm_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return float(out.split()[0])
+
+
+def measure(variants, staged, rounds: int = 3, reps: int = 3):
+    """Each variant built, held against the engine's own output on the
+    staged tile, then timed in turns: ``rounds`` samples of ``reps``
+    calls each. Returns one dict per variant."""
+    cfg, maxw, args, _ = staged
+    kernels = {v: variant_kernel(v) for v in variants}
+    _cuda.build_all(tuple(kernels.values()))
+    want = engine.align_windows(cfg, maxw, *args)
+    rows = {}
+    for v, k in kernels.items():
+        got, cyc = launch(k, cfg, maxw, args, 3 if v == "clocks" else 0)
+        rows[v] = dict(variant=v, same=_same(got, want), samples=[],
+                       ptxas=_ptxas(k.build_log), cycles=cyc)
+    for _ in range(rounds):
+        for v, k in kernels.items():
+            extra = 3 if v == "clocks" else 0
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(reps):
+                launch(k, cfg, maxw, args, extra)
+            t1.record()
+            t1.synchronize()
+            rows[v]["samples"].append(t0.elapsed_time(t1) / reps)
+    for r in rows.values():
+        r["median_ms"] = statistics.median(r["samples"])
+    return list(rows.values())
+
+
+def section_split(cycles: torch.Tensor, mhz: float):
+    """(3, B) per-lane SM cycles -> share of each section in the summed
+    cycles, and the mean and largest lane total in ms at ``mhz``."""
+    c = cycles.double()
+    per = c.sum(1)
+    total = c.sum(0)
+    return dict(shares=[float(x) for x in per / per.sum()],
+                mean_lane_ms=float(total.mean()) / (mhz * 1e3),
+                max_lane_ms=float(total.max()) / (mhz * 1e3))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--reads", type=int, default=16384)
+    args = ap.parse_args(argv)
+    for v in args.variants:
+        variant_source(v)  # names and anchors, before any work
+    dev = resolve_device("cuda")
+    import scrooge_tpu_torch as st
+    from ..profiling import kernel_time
+    from ..utils.simulate import simulate_dataset
+
+    cfg = AlignConfig(W=64, K=64, O=33, batch_tile=args.reads)
+    ds = simulate_dataset(genome_len=1_000_000, num_reads=args.reads,
+                          read_len=10000, accuracy=0.95, seed=7)
+    staged = kernel_time.stage_mapped(st.prepare_genome(ds.genome),
+                                      ds.reads, cfg, dev)
+    where = torch.cuda.get_device_name(dev)
+    rows = measure(["full"] + [v for v in args.variants if v != "full"],
+                   staged)
+    full = rows[0]["median_ms"]
+    for r in rows:
+        samples = " ".join(f"{x:.3f}" for x in r["samples"])
+        med = r["median_ms"]
+        print(f"{r['variant']:7s}: {samples} ms, median {med:.3f} "
+              f"({med / full:.3f} x full), same output as the engine: "
+              f"{r['same']}, "
+              f"{r['ptxas']} ({where}, {staged[3]} reads)", flush=True)
+        if r["variant"] == "clocks":
+            s = section_split(r["cycles"], _max_sm_mhz())
+            print("clocks : share of lane cycles "
+                  + ", ".join(f"{n} {x:.3f}" for n, x in
+                              zip(SECTIONS, s["shares"]))
+                  + f"; lane total at the max SM clock: mean "
+                  f"{s['mean_lane_ms']:.3f} ms, largest "
+                  f"{s['max_lane_ms']:.3f} ms", flush=True)
+    if not all(r["same"] for r in rows):
+        raise SystemExit("a variant's output differs from the engine's")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -90,3 +90,42 @@ def simulate_dataset(genome_len: int = 1_000_000, num_reads: int = 1000,
     genome = random_genome(genome_len, seed=seed, name="ref")
     return SimulatedDataset(genome=genome, reads=simulate_reads(
         genome, num_reads, read_len, accuracy, seed=seed + 1))
+
+
+def edge_pairs(seed: int, B: int, T: int, P: int, tb_limit: int):
+    """A seeded batch of unstructured pairs that reaches the window
+    engine's edge cases, as 2-bit codes: ``(text (B, T) uint8, text_len
+    (B,) int32, pattern (B, P) uint8, pattern_len (B,) int32)``.
+
+    Lanes cycle through eight kinds: an unrelated text and pattern (window
+    distances past 16 rows, FAIL_TB for a small K), a 25 % and a 5 % error
+    rate, a text that runs out long before the read (windows with n = 0), a
+    read of k * tb_limit + 1 chars copied exactly and one at 25 % errors
+    (one-character last windows), an empty read and a 10 % error rate."""
+    rng = np.random.default_rng(seed)
+    text = rng.integers(0, 4, (B, T), dtype=np.uint8)
+    pattern = np.zeros((B, P), np.uint8)
+    tlen = np.full(B, T, np.int32)
+    plen = np.zeros(B, np.int32)
+    for b in range(B):
+        kind = b % 8
+        if kind == 0:
+            q = rng.integers(0, 4, int(rng.integers(P // 2, P + 1)))
+        elif kind == 3:
+            tlen[b] = int(rng.integers(0, 41))
+            q = np.concatenate([text[b, : tlen[b]],
+                                rng.integers(0, 4, P)]).astype(np.uint8)
+        elif kind in (4, 5):
+            k = int(rng.integers(1, max(2, min(P, T) // tb_limit)))
+            q = text[b, : k * tb_limit + 1]
+            if kind == 5:
+                q = _mutate(rng, q, 0.25)
+        elif kind == 6:
+            q = np.zeros(0, np.uint8)
+        else:
+            rate = {1: 0.25, 2: 0.05, 7: 0.10}[kind]
+            q = _mutate(rng, text[b, : int(rng.integers(1, T + 1))], rate)
+        q = q[:P]
+        pattern[b, : len(q)] = q
+        plen[b] = len(q)
+    return text, tlen, pattern, plen

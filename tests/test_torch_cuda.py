@@ -13,6 +13,7 @@ import torch
 import scrooge_tpu_torch as st
 from scrooge_tpu_torch.ops import _cuda, compact, engine, pack
 from scrooge_tpu_torch.tools import kernel_lab
+from scrooge_tpu_torch.utils.simulate import edge_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -59,9 +60,11 @@ def test_kernel_matches_plain(cuda, wko):
             torch.from_numpy(plen).to(cuda))
     maxw = cfg.max_windows(360)
     nw = engine.num_words(W)
-    before = _cuda.GENASM_WINDOWS.counts[nw]
+    kernel = engine.window_kernel(cfg)
+    assert (kernel is _cuda.GENASM_WINDOWS1) == (W <= 64)
+    before = kernel.counts[nw]
     got = engine.align_batch(cfg, maxw, *args)
-    assert _cuda.GENASM_WINDOWS.counts[nw] == before + 1
+    assert kernel.counts[nw] == before + 1
     B, Tw = args[0].shape
     base = torch.arange(B, dtype=torch.int64, device=cuda) * (Tw * 16)
     want = engine.align_windows_plain(cfg, maxw, args[0], base, *args[1:])
@@ -95,6 +98,52 @@ def test_kernel_mapped_matches_plain(cuda, wko):
     want = engine.align_windows_plain(cfg, maxw, *args)
     torch.cuda.synchronize()
     _same(got, want)
+
+
+# the configs of the CPU edge-case test in test_torch_engine.py: O = 2
+# and O = 0 trace back 62 and 64 chars (65 stored columns), K = 16 fails
+# the unrelated lanes
+EDGE_CONFIGS = [(64, 64, 33), (48, 48, 25), (64, 64, 2), (64, 64, 0),
+                (64, 16, 33)]
+
+
+@pytest.mark.parametrize("wko", EDGE_CONFIGS)
+def test_one_word_kernel_matches_plain_on_edge_pairs(cuda, wko):
+    """The one-word kernel (genasm_windows1.cu) against the plain version,
+    on the edge-case batches of the CPU test in test_torch_engine.py."""
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O)
+    kern = _cuda.GENASM_WINDOWS1
+    assert engine.window_kernel(cfg) is kern
+    text, tlen, pattern, plen = edge_pairs(W + O + K, 64, 300, 280,
+                                           cfg.tb_limit)
+    tw = pack.pack_2bit(torch.from_numpy(text)).to(cuda)
+    base = torch.arange(64, dtype=torch.int64, device=cuda) * (
+        tw.shape[1] * 16)
+    args = (tw, base, torch.from_numpy(tlen).to(cuda),
+            pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
+            torch.from_numpy(plen).to(cuda))
+    maxw = cfg.max_windows(280)
+    before = kern.counts[1]
+    got = engine.align_windows(cfg, maxw, *args)
+    assert kern.counts[1] == before + 1
+    want = engine.align_windows_plain(cfg, maxw, *args)
+    torch.cuda.synchronize()
+    if K == 16:
+        assert int((want.failed == engine.FAIL_TB).sum()) > 0
+    _same(got, want)
+
+
+def test_one_word_kernel_refuses_wide_windows(cuda):
+    """A refused launch raises and counts nothing: the entry point takes
+    W <= 64 only and returns -1 before it reads any pointer."""
+    kern = _cuda.GENASM_WINDOWS1
+    before = kern.counts[1]
+    with pytest.raises(RuntimeError, match="arguments refused"):
+        # null pointers, B=2, W=128 K=128 O=65, 4 windows
+        kern.launch(1, None, 4, None, None, None, 4, None, 2, 128, 128, 65,
+                    4, None, None, None, None, None, None)
+    assert kern.counts[1] == before
 
 
 def test_api_on_cuda(cuda):

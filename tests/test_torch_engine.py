@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from scrooge_tpu.config import AlignConfig  # noqa: E402
 from scrooge_tpu.ops import engine_pallas, engine_xla  # noqa: E402
 from scrooge_tpu_torch.ops import compact, engine, pack  # noqa: E402
+from scrooge_tpu_torch.utils.simulate import edge_pairs  # noqa: E402
 
 
 def _mutate(rng, seq, rate):
@@ -103,6 +104,59 @@ def test_plain_engine_matches_xla_engine(wko):
                             _port(plen))
     assert int(rt.counts.sum()) > 0
     _assert_same(rx, rt)
+
+
+@pytest.mark.parametrize("wko", [(64, 64, 33), (48, 48, 25), (64, 64, 2),
+                                 (64, 64, 0), (64, 16, 33)])
+def test_plain_engine_matches_xla_engine_on_edge_pairs(wko):
+    """The branches the one-word kernels must reproduce, pinned against
+    engine_xla: unrelated pairs (window distances past 16 rows; FAIL_TB at
+    K=16), 25 % errors, a text that runs out (n = 0), one-character last
+    windows, an empty read; W < 64 (the top-bit mask) and O = 2 / O = 0
+    (62 and 64 chars traced back, 63 and 65 stored columns). The same
+    inputs go through the kernels in tests/test_torch_cuda.py."""
+    W, K, O = wko
+    cfg = AlignConfig(W=W, K=K, O=O)
+    B, T, P = 64, 300, 280
+    text, tlen, pattern, plen = edge_pairs(W + O + K, B, T, P, cfg.tb_limit)
+    maxw = cfg.max_windows(P)
+    pad = ((0, 128 - B), (0, 0))  # engine_xla takes lanes in 128s
+    rx = engine_xla.align_batch(cfg, maxw, np.pad(text, pad),
+                                np.pad(tlen, pad[0]), np.pad(pattern, pad),
+                                np.pad(plen, pad[0]))
+    rx = type(rx)(*(np.asarray(x)[..., :B] for x in rx))
+    rt = engine.align_batch(cfg, maxw, pack.pack_2bit(_port(text)),
+                            _port(tlen), pack.pack_2bit(_port(pattern)),
+                            _port(plen))
+    if K == 16:
+        assert int((rt.failed == engine.FAIL_TB).sum()) > 0
+    else:
+        assert int(rt.failed.ne(0).sum()) == 0
+        assert int(rt.work[0].max()) > 17 * (W + 1)  # rows past 16
+    assert int((rt.counts.sum(0) > 0).sum()) > B // 2
+    _assert_same(rx, rt)
+
+
+@pytest.mark.parametrize("W", [16, 64, 65, 256])
+def test_window_kernel_follows_word_count(W):
+    """The config alone picks the CUDA kernel: genasm_windows1.cu for one
+    word, genasm_windows.cu for more; CPU tensors take the plain version
+    and launch neither."""
+    from scrooge_tpu_torch.ops import _cuda
+
+    cfg = AlignConfig(W=W, K=W, O=W // 2 + 1)
+    want = _cuda.GENASM_WINDOWS1 if W <= 64 else _cuda.GENASM_WINDOWS
+    assert engine.window_kernel(cfg) is want
+    before = [dict(k.counts) for k in (_cuda.GENASM_WINDOWS1,
+                                        _cuda.GENASM_WINDOWS)]
+    words = torch.zeros((1, -(-W // 16)), dtype=torch.int32)
+    args = (words, torch.zeros(1, dtype=torch.int64),
+            torch.full((1,), W, dtype=torch.int32), words,
+            torch.full((1,), W, dtype=torch.int32))
+    res = engine.align_windows(cfg, cfg.max_windows(W), *args)
+    assert int(res.edit_distance[0]) == 0 and int(res.failed[0]) == 0
+    assert [dict(k.counts) for k in (_cuda.GENASM_WINDOWS1,
+                                     _cuda.GENASM_WINDOWS)] == before
 
 
 @pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65),

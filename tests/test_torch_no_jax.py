@@ -12,9 +12,14 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
+import os
 import sys
+
+import torch
 import scrooge_tpu_torch as st
-from scrooge_tpu_torch.tools import kernel_lab
+from scrooge_tpu_torch.ops import _cuda, engine, pack
+from scrooge_tpu_torch.tools import kernel_lab, window_lab
+from scrooge_tpu_torch.utils.simulate import edge_pairs
 
 for backend in ("auto", "pyref"):
     cfg = st.AlignConfig(backend=backend)
@@ -30,6 +35,18 @@ lab = kernel_lab.run_plain("full", 2,
                            *kernel_lab.from_lab_layout(
                                *kernel_lab.lab_inputs(128)))
 assert int(lab.total) == 2 * int(lab.wed.sum()) > 0
+cfg = st.AlignConfig(W=64, K=16, O=33)
+assert engine.window_kernel(cfg) is _cuda.GENASM_WINDOWS1
+for k in _cuda.KERNELS:
+    assert os.path.isfile(os.path.join(_cuda.CSRC, k.source)), k.source
+assert "clock64()" in window_lab.variant_source("clocks")
+text, tlen, pattern, plen = edge_pairs(1, 16, 200, 180, cfg.tb_limit)
+res = engine.align_batch(cfg, cfg.max_windows(180),
+                         pack.pack_2bit(torch.from_numpy(text)),
+                         torch.from_numpy(tlen),
+                         pack.pack_2bit(torch.from_numpy(pattern)),
+                         torch.from_numpy(plen))
+assert int((res.failed == engine.FAIL_TB).sum()) > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "scrooge_tpu"))
 assert not loaded, loaded

@@ -7,23 +7,23 @@ Phases, one line each:
      reports it (its own line);
   2. build: compile the three kernel sources from csrc/ with nvcc, one
      process each, started together; registers and spills of every
-     instantiation;
+     instantiation, and no window kernel may spill;
   3. kernel against plain: the window kernel and the plain torch engine on
      the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33,
-     32/32/17, 96/96/49, 128/128/65, 192/192/97 and 256/256/129 (W <= 64
-     on the one-word kernel genasm_windows1.cu, two to four words on
-     genasm_windows.cu); then 512 unrelated pairs of 1 kbp at 64/64/33 (a
-     quarter of the texts run out: rows up to K and the row pair that
-     computes row K+1) and at 64/16/33 (FAIL_TB lanes); then the main
-     path's own tile (16384 reads of 10 kbp at 64/64/33); every output
-     must be identical;
+     32/32/17, 96/96/49, 128/128/65, 128/128/2 (two traceback mask words,
+     every R word stored), 192/192/97 and 256/256/129 (W <= 64 on the
+     one-word kernel genasm_windows1.cu, two to four words on
+     genasm_windows.cu); then 512 unrelated pairs of 1 kbp at 64/64/33
+     and 128/128/65 (a quarter of the texts run out: rows up to K and the
+     row pair that computes row K+1) and at 64/16/33 and 128/16/65
+     (FAIL_TB lanes); then the main path's own tile (16384 reads of 10 kbp
+     at 64/64/33); every output must be identical;
   4. main path: align_reads on the bench workload (simulate_dataset(
      1 Mbp genome, 16384 reads x 10 kbp, 95 % accuracy, seed 7), W=64
      K=64 O=33, one tile of 16384), strings then packed; the one-word
-     kernel's launch count must grow and the NW = 1 instantiation of
-     genasm_windows.cu (the former one-word kernel) must not launch, both
-     outputs must agree, sampled pairs must equal pyref and carry valid
-     CIGARs;
+     kernel's launch count must grow and the multiword kernel must not
+     launch, both outputs must agree, sampled pairs must equal pyref and
+     carry valid CIGARs;
   5. kernel-only time of the same tile, CUDA events, 3 x 3 calls;
   6. the README's quick-start pair;
   7. wide path: the same tile at W=128 K=128 O=65 (two words), kernel
@@ -62,6 +62,9 @@ LAB_REPLACES = "tools/kernel_lab.py:107"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 units
 TB_STEP_OPS = 12           # int32 ops per traceback step: 3 bit tests
+# INT32 instructions a DP cell takes per 64-bit word of its bitvectors
+# (window_bound derives it)
+CELL_OPS_PER_WORD = 8
 
 
 def phase(name: str, **fields) -> None:
@@ -185,22 +188,30 @@ def int32_ops_per_s() -> float:
 def window_bound(cfg, maxw, args, res, ops_rate):
     """Least time the window engine could take on this run's inputs:
     (ms, 'bytes' or 'operations', detail). ``res`` is the plain version's
-    result on those inputs. Operations: every DP cell the run filled (its
-    work counters; the kernel fills the same cells) at 2 x (7 NW + 6 (NW-1))
-    INT32 ops (the d >= 1 recurrence on NW 64-bit words, each 64-bit
-    logic op or shift two 32-bit ops, d = 0 cells counted alike), plus
-    TB_STEP_OPS a traceback step. That count is high, so the bound is
-    long: the INT32 rate counts instructions, one LOP3 does any
-    three-input logic and a shift can serve two cells, so a one-word cell
-    takes about 8 instructions, not 14. Bytes: the packed text and
-    pattern chars read once, lengths and bases, every run, count and
-    result written once."""
+    result on those inputs.
+
+    Operations: every DP cell the run filled (its work counters; the
+    kernel fills the same cells, d = 0 cells counted alike) at
+    CELL_OPS_PER_WORD x NW INT32 instructions, plus TB_STEP_OPS a
+    traceback step. The cell is
+    ``(shl1(right) | pm) & shl1(topright) & shl1(top) & topright`` on NW
+    64-bit words, 2 NW 32-bit halves, and the rate counts instructions:
+    - logic: five terms take two three-input LOP3s a half, 4 NW;
+    - shifts: shl1(topright) of a cell is shl1(top) of its neighbour in
+      column i+1, so a cell makes two shifts by one; each half of a shift
+      is one funnel shift (the lowest half a plain shift), 4 NW;
+    so 8, 16, 24 and 32 instructions a cell at NW = 1..4. Bits at W and
+    above need no mask (nothing reads them), and the PM select by text
+    character, start-column selects and stores are not counted. This is
+    a count of the recurrence, not a measured instruction mix.
+    Bytes: the packed text and pattern chars read once, lengths and
+    bases, every run, count and result written once."""
     from scrooge_tpu_torch.ops import engine
 
     nw = engine.num_words(cfg.W)
     cells = int(res.work[0].sum().item())
     steps = int(res.work[1].sum().item())
-    ops = cells * 2 * (7 * nw + 6 * (nw - 1)) + steps * TB_STEP_OPS
+    ops = cells * CELL_OPS_PER_WORD * nw + steps * TB_STEP_OPS
     B = int(args[4].shape[0])
     read_chars = int(args[4].long().sum().item())
     # text and pattern: about as many text chars are consumed as read
@@ -426,24 +437,31 @@ def main() -> int:
     # ---- 2. build ----
     for src, secs in _cuda.build_all().items():
         k = next(k for k in _cuda.KERNELS if k.source == src)
+        summary = ptxas_summary(k.build_log)
         phase("build", source=src, seconds=f"{secs:.2f}",
-              ptxas=repr(ptxas_summary(k.build_log)))
+              ptxas=repr(summary))
+        if (k in (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS)
+                and any(int(x) for x in re.findall(r"(\d+) B spill",
+                                                   summary))):
+            raise AssertionError(f"{src} spills to local memory: {summary}")
 
     # ---- 3. kernel against plain ----
     for W, K, O in ((64, 64, 33), (32, 32, 17), (96, 96, 49),
-                    (128, 128, 65), (192, 192, 97), (256, 256, 129)):
+                    (128, 128, 65), (128, 128, 2), (192, 192, 97),
+                    (256, 256, 129)):
         cfg = st.AlignConfig(W=W, K=K, O=O)
         maxw, args = random_pairs(cfg, W, dev)
         compare(cfg, maxw, args, "512x1kbp")
-    for K in (64, 16):
-        cfg = st.AlignConfig(W=64, K=K, O=33)
+    for W, K, O in ((64, 64, 33), (64, 16, 33), (128, 128, 65),
+                    (128, 16, 65)):
+        cfg = st.AlignConfig(W=W, K=K, O=O)
         maxw, args = unrelated_pairs(cfg, 100 + K, dev)
         want = compare(cfg, maxw, args, "512x1kbp-unrelated")["plain"]
-        # no window of m <= W = 64 chars needs more than 64 edits
+        # no window of m <= W chars needs more than W edits
         fail_tb = int((want.failed & engine.FAIL_TB != 0).sum().item())
         if (K == 16) != (fail_tb > 0):
-            raise AssertionError(f"unrelated pairs at K={K}: {fail_tb} "
-                                 "FAIL_TB lanes")
+            raise AssertionError(f"unrelated pairs at W={W} K={K}: "
+                                 f"{fail_tb} FAIL_TB lanes")
 
     cfg = st.AlignConfig(W=64, K=64, O=33, early_termination=True,
                          batch_tile=16384)
@@ -459,9 +477,8 @@ def main() -> int:
 
     # ---- 4. main path ----
     counts = {1: drive_path("main-path", cfg, ds, prepared, dev, 16, 512)}
-    if counts[1][_cuda.GENASM_WINDOWS].get(1, 0) != 0:
-        raise AssertionError("the main path launched the former one-word "
-                             "kernel")
+    if sum(counts[1][_cuda.GENASM_WINDOWS].values()) != 0:
+        raise AssertionError("the main path launched the multiword kernel")
 
     # ---- 5. kernel-only time ----
     kernel_only("kernel-only", staged, len(ds.reads))

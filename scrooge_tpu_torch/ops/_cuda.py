@@ -89,21 +89,21 @@ class CudaKernel:
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-# replaces engine_pallas.slab_step_kernel (_multi_window_kernel); keyed
-# by the words per bitvector, NW = ceil(W/64); the engine launches it for
-# NW = 2..4 and GENASM_WINDOWS1 for NW = 1
+# replaces engine_pallas.slab_step_kernel (_multi_window_kernel) for two
+# to four words; keyed by the words per bitvector, NW = ceil(W/64) in
+# 2..4 (the entry point refuses 1: GENASM_WINDOWS1 takes one word)
 GENASM_WINDOWS = CudaKernel(
     "genasm_windows.cu", "genasm_windows_launch",
-    [_P, _P, _P,          # text words, text base chars, text len
+    [_P, _I64,            # text words, their count
+     _P, _P,              # text base chars, text len
      _P, _I64, _P,        # pattern words, words per pattern row, pattern len
      _I, _I, _I, _I, _I,  # B, W, K, O, max_windows
      _P, _P,              # R scratch, forefront scratch
      _P, _P, _P, _P,      # ed, failed, entries, counts
      _P])                 # cudaStream_t
 
-# the same kernel redesigned for one word (W <= 64): window set-up from
-# packed words, the forefront in registers, the level traceback; keyed by
-# NW, which must be 1. No forefront scratch; R holds K+2 rows.
+# the window kernel for one word (W <= 64): the forefront in registers;
+# keyed by NW, which must be 1. No forefront scratch.
 GENASM_WINDOWS1 = CudaKernel(
     "genasm_windows1.cu", "genasm_windows1_launch",
     [_P, _I64,            # text words, their count

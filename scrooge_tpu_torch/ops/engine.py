@@ -8,10 +8,10 @@ Port of the JAX package's window engines:
   (``_mw_*``, ``_shl1_u32``, ``_ones_shifted_u32``, :241-334). On the card
   this is one hand-written kernel launch for all windows, one thread per
   pair, which replaces the slab loop and the per-pair segment copy:
-  ``csrc/genasm_windows1.cu`` for one-word bitvectors (W <= 64: window
-  set-up from packed words, the forefront in registers, the TPU kernel's
-  level traceback) and ``csrc/genasm_windows.cu`` for two to four words.
-  The choice follows the config alone.
+  ``csrc/genasm_windows1.cu`` for one-word bitvectors (W <= 64) and
+  ``csrc/genasm_windows.cu`` for two to four words; both set windows up
+  from the packed words, fill two rows a pass and run the TPU kernel's
+  level traceback. The choice follows the config alone.
 - ``engine_xla._window_step`` / ``_align_scan`` / ``align_batch[_mapped]``
   (scrooge_tpu/ops/engine_xla.py:105-443). ``align_windows_plain`` below is
   their lane-batched lockstep counterpart in torch ops. The CPU path and
@@ -30,8 +30,10 @@ Semantics that differ from the JAX engines, and why no output changes:
 - early termination is always on: the rows after the first hit are never
   read by the traceback.
 
-Bitvectors are NW = ceil(W/64) 64-bit words, word 0 the lowest, W <= 256,
-LSB-aligned as in the scalar oracle (pyref.py): pattern position j is bit
+Bitvectors are NW = ceil(W/64) 64-bit words, word 0 the lowest, W <= 256.
+The plain version keeps them LSB-aligned as in the scalar oracle
+(pyref.py; the multiword kernel aligns them to the top bit, as the TPU
+kernel does, which changes no output): pattern position j is bit
 m-1-j of the whole multiword value, the full-match probe is bit m-1, a
 shift by d >= W saturates to 0, and the top word is masked to its
 W - 64*(NW-1) bits. torch's unsigned dtypes cannot shift, invert or
@@ -174,6 +176,25 @@ def window_kernel(cfg: AlignConfig):
             else _cuda.GENASM_WINDOWS)
 
 
+def scratch_words(cfg: AlignConfig, B: int):
+    """int64 words of the kernel's R and forefront scratch for B lanes.
+
+    R: rows d <= K+1 (the row pair at d = K computes row K+1), columns
+    i < W-O+1 (DENT), in blocks of 32 lanes. The one-word kernel stores
+    one word a column and keeps its forefront in registers (no scratch).
+    The multiword kernel stores only the MSB-aligned words that hold bits
+    [O-1, W), which the traceback reads: NW - max(O-1, 0) // 64 of them;
+    its forefront holds W+17 columns of NW words (genasm_windows.cu
+    ff_cols: 0..W and the top fill batch's columns above W).
+    """
+    nw, lanes = num_words(cfg.W), -(-B // 32) * 32
+    if nw == 1:
+        return (cfg.K + 2) * cfg.columns * lanes, 0
+    stored = nw - max(cfg.O - 1, 0) // WORD
+    return ((cfg.K + 2) * stored * cfg.columns * lanes,
+            (cfg.W + 17) * nw * lanes)
+
+
 def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
                         pattern_words, pattern_len) -> BatchResult:
     """Kernel wrapper: allocates outputs and scratch, launches once."""
@@ -183,39 +204,26 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
     dev = pattern_words.device
     B = int(pattern_len.shape[0])
     NE = entry_rows(cfg)
-    NW = num_words(cfg.W)
     ed = torch.empty(B, dtype=torch.int32, device=dev)
     failed = torch.empty(B, dtype=torch.int32, device=dev)
     entries = torch.zeros((max_windows, NE, B), dtype=torch.int16,
                           device=dev)
     counts = torch.empty((max_windows, B), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    common = (pattern_words.data_ptr(), int(pattern_words.shape[1]),
-              pattern_len.data_ptr(), B, cfg.W, cfg.K, cfg.O,
-              int(max_windows))
-    outs = (ed.data_ptr(), failed.data_ptr(), entries.data_ptr(),
-            counts.data_ptr(), stream)
+    r_words, ff_words = scratch_words(cfg, B)
+    R = torch.empty(r_words, dtype=torch.int64, device=dev)
+    scratch = (R.data_ptr(),)
+    if ff_words:
+        ff = torch.empty(ff_words, dtype=torch.int64, device=dev)
+        scratch += (ff.data_ptr(),)
     with torch.cuda.device(dev):
-        if kernel is _cuda.GENASM_WINDOWS1:
-            # R: rows d <= K+1 (the row pair at d = K computes row K+1),
-            # columns i < W-O+1 (DENT), in blocks of 32 lanes
-            # [lane / 32][row][col][lane % 32]
-            R = torch.empty((cfg.K + 2) * cfg.columns * -(-B // 32) * 32,
-                            dtype=torch.int64, device=dev)
-            kernel.launch(NW, text_words.data_ptr(), text_words.numel(),
-                          text_base.data_ptr(), text_len.data_ptr(),
-                          *common, R.data_ptr(), *outs)
-        else:
-            # R: rows d <= K, columns i < W-O+1 (DENT), all NW words,
-            # lane-minor [row][col][word][lane]; the forefront
-            # [col][word][lane]
-            R = torch.empty((cfg.K + 1) * cfg.columns * NW * B,
-                            dtype=torch.int64, device=dev)
-            ff = torch.empty((cfg.W + 1) * NW * B, dtype=torch.int64,
-                             device=dev)
-            kernel.launch(NW, text_words.data_ptr(), text_base.data_ptr(),
-                          text_len.data_ptr(), *common, R.data_ptr(),
-                          ff.data_ptr(), *outs)
+        kernel.launch(num_words(cfg.W), text_words.data_ptr(),
+                      text_words.numel(), text_base.data_ptr(),
+                      text_len.data_ptr(), pattern_words.data_ptr(),
+                      int(pattern_words.shape[1]), pattern_len.data_ptr(),
+                      B, cfg.W, cfg.K, cfg.O, int(max_windows), *scratch,
+                      ed.data_ptr(), failed.data_ptr(), entries.data_ptr(),
+                      counts.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
     return BatchResult(ed, failed, entries, counts)
 
 

@@ -1,9 +1,11 @@
-"""Window lab: where the one-word window kernel's time goes.
+"""Window lab: where a window kernel's time goes.
 
-Source variants of ``csrc/genasm_windows1.cu``, built with nvcc as the
-kernel itself is and launched through the same entry point on the same
-staged tile (the bench workload: 1 Mbp genome, 10 kbp reads at 95 %
-accuracy, seed 7, W=64 K=64 O=33):
+Source variants of a window kernel, built with nvcc as the kernel itself
+is and launched through the same entry point on the same staged tile
+(the bench workload: 1 Mbp genome, 10 kbp reads at 95 % accuracy, seed 7)
+at the source's configuration:
+
+``csrc/genasm_windows1.cu`` (one word, W=64 K=64 O=33, the main path):
 
   full     the source as it is: the kernel the main path launches
   clocks   full with SM clock reads (clock64) around each window's three
@@ -12,6 +14,16 @@ accuracy, seed 7, W=64 K=64 O=33):
   ch16     CH = 16
   t32      32 threads a block (full has 64)
 
+``csrc/genasm_windows.cu`` (two to four words, W=128 K=128 O=65, the
+wide path):
+
+  full     the source as it is
+  clocks   as above
+  ffsmem   the forefront row in shared memory (dynamic, one 32-lane
+           block's rows) instead of device memory; blocks of 32 threads
+  tb8      CH = 8 traceback offsets a batch of R loads at two words (full
+           has 4)
+
 A variant is the source with named text edits, each of which must match
 exactly once, so a change to the kernel that moves an anchor fails here
 rather than timing something else. No variant changes what the kernel
@@ -19,7 +31,7 @@ computes: each must give full's output exactly. Samples of 3 calls are
 timed with CUDA events, the variants in turns.
 
     python -m scrooge_tpu_torch.tools.window_lab [variant ...] \\
-        [--reads 16384]
+        [--source genasm_windows1.cu|genasm_windows.cu] [--reads 16384]
 
 needs a CUDA card: there is no plain version of a timing variant.
 """
@@ -39,7 +51,6 @@ from ..buildcache import BUILD_DIR
 from ..config import AlignConfig
 from ..ops import _cuda, engine
 
-VARIANTS = ("full", "clocks", "ch4", "ch16", "t32")
 SECTIONS = ("set-up", "fill", "traceback")
 
 
@@ -54,41 +65,76 @@ def _clock(k: int) -> str:
             "(unsigned long long)(c - c_at); c_at = c; }\n")
 
 
-# (anchor, replacement) pairs; each anchor must occur once in the source
-_EDITS = {
-    "full": (),
-    "clocks": (
-        _before("  for (int w = 0; w < max_windows; ++w) {\n",
-                "  unsigned long long cyc[3] = {0, 0, 0};  // by section\n"
-                "  long long c_at = 0;\n"),
-        _before("      // ---- (a) window set-up from packed words ----\n",
-                "      c_at = clock64();\n"),
-        _before("      // ---- (b) DP fill (pyref.genasm_dc), two rows a "
-                "pass ----\n", _clock(0)),
-        _before("      if (wed < 0) {\n", _clock(1)),
-        _before("        // ---- carry update (engine_xla.py:339-350) "
-                "----\n", _clock(2)),
-        # the sums go past the end of R, which the lab allocates 3 B longer
-        _before("  ed_out[b] = ed;\n",
-                "  uint64_t* cy = R + (size_t)((B + LB - 1) / LB) * (K + 2)"
-                " * row_stride;\n"
-                "  cy[b] = cyc[0];\n  cy[nb + b] = cyc[1];\n"
-                "  cy[2 * nb + b] = cyc[2];\n"),
-    ),
-    "ch4": (("constexpr int CH = 8;", "constexpr int CH = 4;"),),
-    "ch16": (("constexpr int CH = 8;", "constexpr int CH = 16;"),),
-    "t32": (("constexpr int THREADS = 64;", "constexpr int THREADS = 32;"),),
+# both kernels share these anchors and the names LB, K and row_stride
+_CLOCKS = (
+    _before("  for (int w = 0; w < max_windows; ++w) {\n",
+            "  unsigned long long cyc[3] = {0, 0, 0};  // by section\n"
+            "  long long c_at = 0;\n"),
+    _before("      // ---- (a) window set-up from packed words ----\n",
+            "      c_at = clock64();\n"),
+    _before("      // ---- (b) DP fill (pyref.genasm_dc), two rows a "
+            "pass ----\n", _clock(0)),
+    _before("      if (wed < 0) {\n", _clock(1)),
+    _before("        // ---- carry update (engine_xla.py:339-350) "
+            "----\n", _clock(2)),
+    # the sums go past the end of R, which the lab allocates 3 B longer
+    _before("  ed_out[b] = ed;\n",
+            "  uint64_t* cy = R + (size_t)((B + LB - 1) / LB) * (K + 2)"
+            " * row_stride;\n"
+            "  cy[b] = cyc[0];\n  cy[nb + b] = cyc[1];\n"
+            "  cy[2 * nb + b] = cyc[2];\n"),
+)
+
+# source -> (kernel, (W, K, O) of its tile, {variant: (anchor, new) edits})
+# each anchor must occur once in the source
+SOURCES = {
+    "genasm_windows1.cu": (_cuda.GENASM_WINDOWS1, (64, 64, 33), {
+        "full": (),
+        "clocks": _CLOCKS,
+        "ch4": (("constexpr int CH = 8;", "constexpr int CH = 4;"),),
+        "ch16": (("constexpr int CH = 8;", "constexpr int CH = 16;"),),
+        "t32": (("constexpr int THREADS = 64;",
+                 "constexpr int THREADS = 32;"),),
+    }),
+    "genasm_windows.cu": (_cuda.GENASM_WINDOWS, (128, 128, 65), {
+        "full": (),
+        "clocks": _CLOCKS,
+        "ffsmem": (
+            ("constexpr int THREADS = 64;", "constexpr int THREADS = 32;"),
+            ("  uint64_t* __restrict__ fl = ff + (size_t)(b / LB) * fpitch"
+             " + b % LB;\n",
+             "  extern __shared__ uint64_t ff_smem[];  // a block's rows\n"
+             "  uint64_t* __restrict__ fl = ff_smem + threadIdx.x;\n"),
+            _before("  genasm_windows_kernel<NW><<<grid, THREADS, 0, "
+                    "stream>>>(\n",
+                    "  const int smem = ff_cols(W) * NW * LB * 8;\n"
+                    "  cudaFuncSetAttribute(genasm_windows_kernel<NW>,\n"
+                    "      cudaFuncAttributeMaxDynamicSharedMemorySize, "
+                    "smem);\n"),
+            ("  genasm_windows_kernel<NW><<<grid, THREADS, 0, stream>>>(",
+             "  genasm_windows_kernel<NW><<<grid, THREADS, smem, "
+             "stream>>>("),
+        ),
+        "tb8": (("  return NW == 2 ? 4 : 8;", "  return 8;"),),
+    }),
 }
+DEFAULT_SOURCE = "genasm_windows1.cu"
+# the one-word kernel's variants
+VARIANTS = tuple(SOURCES[DEFAULT_SOURCE][2])
 
 
-def variant_source(variant: str) -> str:
+def variant_source(variant: str, source: str = DEFAULT_SOURCE) -> str:
     """The kernel source with ``variant``'s edits; raises ValueError when
     an anchor does not occur exactly once."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
-    with open(os.path.join(_cuda.CSRC, _cuda.GENASM_WINDOWS1.source)) as f:
+    if source not in SOURCES:
+        raise ValueError(f"source {source!r} is not one of {tuple(SOURCES)}")
+    kernel, _, edits = SOURCES[source]
+    if variant not in edits:
+        raise ValueError(f"variant {variant!r} is not one of "
+                         f"{tuple(edits)}")
+    with open(os.path.join(_cuda.CSRC, kernel.source)) as f:
         src = f.read()
-    for anchor, new in _EDITS[variant]:
+    for anchor, new in edits[variant]:
         if src.count(anchor) != 1:
             raise ValueError(f"{variant}: anchor {anchor.strip()!r} occurs "
                              f"{src.count(anchor)} times in the kernel")
@@ -96,24 +142,25 @@ def variant_source(variant: str) -> str:
     return src
 
 
-def variant_kernel(variant: str) -> _cuda.CudaKernel:
+def variant_kernel(variant: str,
+                   source: str = DEFAULT_SOURCE) -> _cuda.CudaKernel:
     """A CudaKernel for the variant's source, written under the build
     directory; ``full`` is the kernel the engine launches."""
+    kernel = SOURCES[source][0]
     if variant == "full":
-        return _cuda.GENASM_WINDOWS1
-    path = os.path.join(BUILD_DIR, "window_lab",
-                        f"genasm_windows1_{variant}.cu")
+        return kernel
+    stem = os.path.splitext(kernel.source)[0]
+    path = os.path.join(BUILD_DIR, "window_lab", f"{stem}_{variant}.cu")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
-        f.write(variant_source(variant))
-    return _cuda.CudaKernel(path, _cuda.GENASM_WINDOWS1.symbol,
-                            _cuda.GENASM_WINDOWS1.argtypes[1:])
+        f.write(variant_source(variant, source))
+    return _cuda.CudaKernel(path, kernel.symbol, kernel.argtypes[1:])
 
 
 def launch(kernel, cfg, maxw, args, extra: int = 0):
-    """One launch with the engine's scratch layout (R: K+2 rows, blocks
-    of 32 lanes) and ``extra`` * B more int64 words after R. Returns
-    (BatchResult, those extra words as an (extra, B) tensor)."""
+    """One launch with the engine's scratch (engine.scratch_words) and
+    ``extra`` * B more int64 words after R. Returns (BatchResult, those
+    extra words as an (extra, B) tensor)."""
     tw, base, tlen, pw, plen = args
     dev, B = pw.device, int(plen.shape[0])
     ed = torch.empty(B, dtype=torch.int32, device=dev)
@@ -121,14 +168,19 @@ def launch(kernel, cfg, maxw, args, extra: int = 0):
     entries = torch.zeros((maxw, engine.entry_rows(cfg), B),
                           dtype=torch.int16, device=dev)
     counts = torch.empty((maxw, B), dtype=torch.int32, device=dev)
-    nr = (cfg.K + 2) * cfg.columns * -(-B // 32) * 32
+    nr, nf = engine.scratch_words(cfg, B)
     R = torch.empty(nr + extra * B, dtype=torch.int64, device=dev)
+    scratch = (R.data_ptr(),)
+    if nf:
+        ff = torch.empty(nf, dtype=torch.int64, device=dev)
+        scratch += (ff.data_ptr(),)
     with torch.cuda.device(dev):
-        kernel.launch(1, tw.data_ptr(), tw.numel(), base.data_ptr(),
-                      tlen.data_ptr(), pw.data_ptr(), int(pw.shape[1]),
-                      plen.data_ptr(), B, cfg.W, cfg.K, cfg.O, int(maxw),
-                      R.data_ptr(), ed.data_ptr(), failed.data_ptr(),
-                      entries.data_ptr(), counts.data_ptr(),
+        kernel.launch(engine.num_words(cfg.W), tw.data_ptr(), tw.numel(),
+                      base.data_ptr(), tlen.data_ptr(), pw.data_ptr(),
+                      int(pw.shape[1]), plen.data_ptr(), B, cfg.W, cfg.K,
+                      cfg.O, int(maxw), *scratch, ed.data_ptr(),
+                      failed.data_ptr(), entries.data_ptr(),
+                      counts.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
     return (engine.BatchResult(ed, failed, entries, counts),
             R[nr:].view(extra, B))
@@ -139,10 +191,11 @@ def _same(a, b) -> bool:
 
 
 def _ptxas(log: str) -> str:
+    """Registers and spill bytes of each instantiation, in build order."""
     regs = re.findall(r"Used (\d+) registers", log)
     spill = re.findall(r"(\d+) bytes spill stores", log)
-    return (f"{regs[-1]} regs, {spill[-1]} B spill" if regs and spill
-            else "built before this run")
+    return (", ".join(f"{r} regs {s} B spill" for r, s in zip(regs, spill))
+            if regs and spill else "built before this run")
 
 
 def _max_sm_mhz() -> float:
@@ -152,12 +205,13 @@ def _max_sm_mhz() -> float:
     return float(out.split()[0])
 
 
-def measure(variants, staged, rounds: int = 3, reps: int = 3):
-    """Each variant built, held against the engine's own output on the
-    staged tile, then timed in turns: ``rounds`` samples of ``reps``
-    calls each. Returns one dict per variant."""
+def measure(variants, staged, rounds: int = 3, reps: int = 3,
+            source: str = DEFAULT_SOURCE):
+    """Each variant of ``source`` built, held against the engine's own
+    output on the staged tile, then timed in turns: ``rounds`` samples of
+    ``reps`` calls each. Returns one dict per variant."""
     cfg, maxw, args, _ = staged
-    kernels = {v: variant_kernel(v) for v in variants}
+    kernels = {v: variant_kernel(v, source) for v in variants}
     _cuda.build_all(tuple(kernels.values()))
     want = engine.align_windows(cfg, maxw, *args)
     rows = {}
@@ -194,24 +248,27 @@ def section_split(cycles: torch.Tensor, mhz: float):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("variants", nargs="*")
+    ap.add_argument("--source", default=DEFAULT_SOURCE, choices=SOURCES)
     ap.add_argument("--reads", type=int, default=16384)
     args = ap.parse_args(argv)
-    for v in args.variants:
-        variant_source(v)  # names and anchors, before any work
+    variants = args.variants or list(SOURCES[args.source][2])
+    for v in variants:
+        variant_source(v, args.source)  # names and anchors, before work
     dev = resolve_device("cuda")
     import scrooge_tpu_torch as st
     from ..profiling import kernel_time
     from ..utils.simulate import simulate_dataset
 
-    cfg = AlignConfig(W=64, K=64, O=33, batch_tile=args.reads)
+    W, K, O = SOURCES[args.source][1]
+    cfg = AlignConfig(W=W, K=K, O=O, batch_tile=args.reads)
     ds = simulate_dataset(genome_len=1_000_000, num_reads=args.reads,
                           read_len=10000, accuracy=0.95, seed=7)
     staged = kernel_time.stage_mapped(st.prepare_genome(ds.genome),
                                       ds.reads, cfg, dev)
     where = torch.cuda.get_device_name(dev)
-    rows = measure(["full"] + [v for v in args.variants if v != "full"],
-                   staged)
+    rows = measure(["full"] + [v for v in variants if v != "full"],
+                   staged, source=args.source)
     full = rows[0]["median_ms"]
     for r in rows:
         samples = " ".join(f"{x:.3f}" for x in r["samples"])

@@ -129,3 +129,11 @@ def edge_pairs(seed: int, B: int, T: int, P: int, tb_limit: int):
         pattern[b, : len(q)] = q
         plen[b] = len(q)
     return text, tlen, pattern, plen
+
+
+def multiword_edge_batch(cfg, B: int = 16):
+    """The edge_pairs batch the multiword window tests share: B lanes,
+    reads of up to 2 tb_limit + 20 chars (up to 3 windows), texts 40
+    chars longer, seeded by the config."""
+    P = 2 * cfg.tb_limit + 20
+    return edge_pairs(cfg.W + cfg.O + cfg.K, B, P + 40, P, cfg.tb_limit)

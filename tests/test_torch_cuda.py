@@ -13,7 +13,7 @@ import torch
 import scrooge_tpu_torch as st
 from scrooge_tpu_torch.ops import _cuda, compact, engine, pack
 from scrooge_tpu_torch.tools import kernel_lab
-from scrooge_tpu_torch.utils.simulate import edge_pairs
+from scrooge_tpu_torch.utils.simulate import edge_pairs, multiword_edge_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -132,6 +132,56 @@ def test_one_word_kernel_matches_plain_on_edge_pairs(cuda, wko):
     if K == 16:
         assert int((want.failed == engine.FAIL_TB).sum()) > 0
     _same(got, want)
+
+
+# the configs of the CPU multiword edge-case test in test_torch_engine.py
+MULTIWORD_EDGE_CONFIGS = [(128, 128, 65), (96, 96, 49), (128, 128, 2),
+                          (128, 128, 0), (130, 130, 66), (192, 192, 97),
+                          (256, 256, 129), (128, 16, 65)]
+
+
+@pytest.mark.parametrize("wko", MULTIWORD_EDGE_CONFIGS)
+def test_multiword_kernel_matches_plain_on_edge_pairs(cuda, wko):
+    """The multiword kernel (genasm_windows.cu) against the plain version,
+    on the edge-case batches of the CPU test in test_torch_engine.py."""
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O)
+    kern = _cuda.GENASM_WINDOWS
+    assert engine.window_kernel(cfg) is kern
+    text, tlen, pattern, plen = multiword_edge_batch(cfg)
+    B, P = pattern.shape
+    tw = pack.pack_2bit(torch.from_numpy(text)).to(cuda)
+    base = torch.arange(B, dtype=torch.int64, device=cuda) * (
+        tw.shape[1] * 16)
+    args = (tw, base, torch.from_numpy(tlen).to(cuda),
+            pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
+            torch.from_numpy(plen).to(cuda))
+    maxw = cfg.max_windows(P)
+    nw = engine.num_words(W)
+    before = kern.counts[nw]
+    got = engine.align_windows(cfg, maxw, *args)
+    assert kern.counts[nw] == before + 1
+    want = engine.align_windows_plain(cfg, maxw, *args)
+    torch.cuda.synchronize()
+    if K == 16:
+        assert int((want.failed == engine.FAIL_TB).sum()) > 0
+    _same(got, want)
+
+
+@pytest.mark.parametrize("nw, W", [(1, 64), (5, 320), (4, 320), (2, 64)])
+def test_multiword_kernel_refuses_one_word_and_wide_windows(cuda, nw, W):
+    """genasm_windows_launch takes NW = ceil(W/64) in 2..4 only: one word
+    belongs to genasm_windows1.cu and W > 256 to no kernel. A refused
+    launch raises and counts nothing; the entry point returns -1 before
+    it reads any pointer."""
+    kern = _cuda.GENASM_WINDOWS
+    before = dict(kern.counts)
+    with pytest.raises(RuntimeError, match="arguments refused"):
+        # null pointers, B=2, K=W, O=W/2+1, 4 windows
+        kern.launch(nw, None, 4, None, None, None, 4, None, 2, W, W,
+                    W // 2 + 1, 4, None, None, None, None, None, None,
+                    None)
+    assert dict(kern.counts) == before
 
 
 def test_one_word_kernel_refuses_wide_windows(cuda):

@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from scrooge_tpu.config import AlignConfig  # noqa: E402
 from scrooge_tpu.ops import engine_pallas, engine_xla  # noqa: E402
 from scrooge_tpu_torch.ops import compact, engine, pack  # noqa: E402
-from scrooge_tpu_torch.utils.simulate import edge_pairs  # noqa: E402
+from scrooge_tpu_torch.utils.simulate import (  # noqa: E402
+    edge_pairs, multiword_edge_batch)
 
 
 def _mutate(rng, seq, rate):
@@ -134,6 +135,42 @@ def test_plain_engine_matches_xla_engine_on_edge_pairs(wko):
         assert int(rt.failed.ne(0).sum()) == 0
         assert int(rt.work[0].max()) > 17 * (W + 1)  # rows past 16
     assert int((rt.counts.sum(0) > 0).sum()) > B // 2
+    _assert_same(rx, rt)
+
+
+# configs the multiword kernel (genasm_windows.cu) must reproduce: O = 2
+# and 0 keep every stored word (FTW = 0) and trace back 126 and 128 chars;
+# O = 65 and 129 store the top words only, O = 49 and W = 96, 130 leave a
+# partial top word, K = 16 fails the unrelated lanes
+MULTIWORD_EDGE_CONFIGS = [(128, 128, 65), (96, 96, 49), (128, 128, 2),
+                          (128, 128, 0), (130, 130, 66), (192, 192, 97),
+                          (256, 256, 129), (128, 16, 65)]
+
+
+@pytest.mark.parametrize("wko", MULTIWORD_EDGE_CONFIGS)
+def test_plain_engine_matches_xla_engine_on_multiword_edge_pairs(wko):
+    """The branches of the multiword kernel, pinned against engine_xla on
+    edge_pairs batches (unrelated pairs, texts that run out, one-character
+    last windows, an empty read) of reads of up to 3 windows. The same
+    inputs go through the kernel in tests/test_torch_cuda.py."""
+    W, K, O = wko
+    cfg = AlignConfig(W=W, K=K, O=O)
+    text, tlen, pattern, plen = multiword_edge_batch(cfg)
+    B, P = pattern.shape
+    maxw = cfg.max_windows(P)
+    pad = ((0, 128 - B), (0, 0))  # engine_xla takes lanes in 128s
+    rx = engine_xla.align_batch(cfg, maxw, np.pad(text, pad),
+                                np.pad(tlen, pad[0]), np.pad(pattern, pad),
+                                np.pad(plen, pad[0]))
+    rx = type(rx)(*(np.asarray(x)[..., :B] for x in rx))
+    rt = engine.align_batch(cfg, maxw, pack.pack_2bit(_port(text)),
+                            _port(tlen), pack.pack_2bit(_port(pattern)),
+                            _port(plen))
+    if K == 16:
+        assert int((rt.failed == engine.FAIL_TB).sum()) > 0
+    else:
+        assert int(rt.failed.ne(0).sum()) == 0
+        assert int((rt.counts.sum(0) > 0).sum()) > B // 2
     _assert_same(rx, rt)
 
 

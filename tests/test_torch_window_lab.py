@@ -1,4 +1,5 @@
-"""The window lab's source variants of csrc/genasm_windows1.cu.
+"""The window lab's source variants of csrc/genasm_windows1.cu and
+csrc/genasm_windows.cu.
 
 The variants are built and timed only on a card; here each one's text
 edits are checked against the kernel source as it stands, so a change to
@@ -30,13 +31,43 @@ def test_variant_source_applies(variant):
         assert "cy[2 * nb + b] = cyc[2];" in got
 
 
+@pytest.mark.parametrize(
+    "variant", tuple(window_lab.SOURCES["genasm_windows.cu"][2]))
+def test_multiword_variant_source_applies(variant):
+    path = os.path.join(_cuda.CSRC, _cuda.GENASM_WINDOWS.source)
+    with open(path) as f:
+        src = f.read()
+    got = window_lab.variant_source(variant, "genasm_windows.cu")
+    assert (got == src) == (variant == "full")
+    assert len(got.splitlines()) >= len(src.splitlines())
+    if variant == "clocks":
+        assert got.count("clock64()") == 4
+        assert "cy[2 * nb + b] = cyc[2];" in got
+    if variant == "ffsmem":
+        # a block's forefront rows in dynamic shared memory, opted in above
+        # 48 KB, one 32-lane block a launch block
+        assert "extern __shared__ uint64_t ff_smem[];" in got
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in got
+        assert "<<<grid, THREADS, smem, stream>>>" in got
+        assert "constexpr int THREADS = 32;" in got
+        assert "constexpr int LB = 32;" in got
+        assert "ff + (size_t)(b / LB)" not in got
+    if variant == "tb8":
+        assert "  return 8;" in got and "NW == 2 ? 4 : 8" not in got
+
+
 def test_variant_anchor_must_match_once(monkeypatch):
-    monkeypatch.setitem(window_lab._EDITS, "ch4",
+    edits = window_lab.SOURCES[window_lab.DEFAULT_SOURCE][2]
+    monkeypatch.setitem(edits, "ch4",
                         (("constexpr int CH = 7;", "constexpr int CH = 4;"),))
     with pytest.raises(ValueError, match="occurs 0 times"):
         window_lab.variant_source("ch4")
     with pytest.raises(ValueError, match="is not one of"):
         window_lab.variant_source("nostore")
+    with pytest.raises(ValueError, match="is not one of"):
+        window_lab.variant_source("ch4", "genasm_windows.cu")
+    with pytest.raises(ValueError, match="is not one of"):
+        window_lab.variant_source("full", "genasm_fill_lab.cu")
 
 
 def test_lab_needs_a_card(monkeypatch):

@@ -7,7 +7,7 @@ Phases, one line each:
      reports it (its own line);
   2. build: compile the three kernel sources from csrc/ with nvcc, one
      process each, started together; registers and spills of every
-     instantiation, and no window kernel may spill;
+     instantiation, and no kernel may spill;
   3. kernel against plain: the window kernel and the plain torch engine on
      the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33,
      32/32/17, 96/96/49, 128/128/65, 128/128/2 (two traceback mask words,
@@ -31,9 +31,11 @@ Phases, one line each:
      kernel-only time; then align_reads at 192/192/97 and 256/256/129 on
      512 reads of 2 kbp, each held against plain and pyref;
   8. fill lab: each variant of the fill-only kernel against its plain
-     version at 2048 lanes, 2 windows (per-lane wed and sum identical),
-     then the lab entry point's timing at 64 windows for 2048 and 16384
-     lanes.
+     version at 2048 lanes, 2 windows, on the (m, n) cases of
+     kernel_lab.MN_CASES (the lab's own inputs among them), and at 16384
+     lanes, 1 window, on the lab's inputs (per-lane wed, the sum and, in full, the rows of
+     R both must store, identical), then the lab entry point's timing at
+     64 windows for 2048 and 16384 lanes, each beside its bound.
 
 Then the kernels' JSON line, the card line again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -63,8 +65,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 units
 TB_STEP_OPS = 12           # int32 ops per traceback step: 3 bit tests
 # INT32 instructions a DP cell takes per 64-bit word of its bitvectors
-# (window_bound derives it)
+# (window_bound derives it), and a cell of row 0, which has no row above
+# (fill_bound)
 CELL_OPS_PER_WORD = 8
+ROW0_OPS_PER_WORD = 4
 
 
 def phase(name: str, **fields) -> None:
@@ -351,57 +355,114 @@ def kernel_only(label, staged, n):
           max=f"{rates[-1]:.1f}")
 
 
+def fill_bound(variant, wed, n, ops_rate):
+    """Least time for NWIN windows of the fill lab on these inputs: (ms,
+    'bytes' or 'operations'). ``wed`` is the plain version's per-lane wed
+    and ``n`` each lane's n.
+
+    Operations: a lane fills rows 0..wed of a window (every lane of the
+    timed inputs hits; one that never did would fill rows up to K, and
+    counting only its row 0 keeps the bound a lower bound). Of the W+1
+    columns only those with i < n take work, min(max(n, 0), W+1) of
+    them: a start column is the constant ones << (W-m+d). Row 0 has no
+    row above, so its cell is ``shl1(right) | pm``, a shift and an OR on
+    each 32-bit half, ROW0_OPS_PER_WORD (4) INT32 instructions. A row
+    d >= 1 is the recurrence, CELL_OPS_PER_WORD (8) a cell as
+    window_bound counts it, except in noff: its row above is the
+    constant 0, so such a cell is 0 and takes none. Bytes: pmi, m and n
+    read once; wed and the per-lane sum written once, and in full R's
+    rows 0..wed (COLS words a row) once, since every window stores the
+    same R."""
+    from scrooge_tpu_torch.tools import kernel_lab as lab
+
+    wed = wed.long().cpu()
+    cols = n.long().cpu().clamp(0, lab.W + 1)
+    deep = 0 if variant == "noff" else CELL_OPS_PER_WORD
+    ops = lab.NWIN * int((cols * (ROW0_OPS_PER_WORD + wed * deep)).sum())
+    B = int(wed.numel())
+    nbytes = lab.W * B * 8 + B * (4 + 4 + 4 + 8)
+    if variant == "full":
+        nbytes += int((wed + 1).sum()) * lab.COLS * 8
+    t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fill_check(v, nwin, m, n, pmi):
+    """The fill-lab kernel against its plain version on the same inputs:
+    (plain result, max abs err over wed and the total, or the count of R
+    words that differ in full if larger)."""
+    from scrooge_tpu_torch.tools import kernel_lab as lab
+
+    got = lab.run(v, nwin, m, n, pmi, device=m.device)
+    want = lab.run_plain(v, nwin, m, n, pmi)
+    err = int((got.wed.long() - want.wed.long()).abs().max().item())
+    err = max(err, abs(int(got.total) - int(want.total)))
+    if v == "full":
+        err = max(err, lab.r_mismatches(got, want))
+    return want, err
+
+
 def fill_lab(ops_rate):
     """Phase 8: returns the kernels-line entries of the fill-lab kernel."""
     from scrooge_tpu_torch.ops import _cuda
     from scrooge_tpu_torch.tools import kernel_lab as lab
 
     dev = torch.device("cuda")
-    m, n, pmi = (t.to(dev) for t in lab.from_lab_layout(*lab.lab_inputs(2048)))
-    checks = {}
-    for v in lab.VARIANTS:
-        got = lab.run(v, 2, m, n, pmi, device=dev)
-        want = lab.run_plain(v, 2, m, n, pmi)
-        err = int((got.wed.long() - want.wed.long()).abs().max().item())
-        err = max(err, abs(int(got.total) - int(want.total)))
-        _, plain_ms = timed(lab.run_plain, v, lab.NWIN, m, n, pmi)
-        phase("fill-lab-vs-plain", variant=v, B=2048, nwin=2,
-              total=int(got.total), plain_total=int(want.total),
-              max_abs_err=err, tolerance=0, plain_ms=f"{plain_ms:.3f}")
-        if err != 0:
-            raise AssertionError(f"fill-lab kernel and plain differ ({v})")
-        checks[v] = (err, plain_ms)
+    lab_own = (lab.M_DEFAULT, lab.W)  # the lab's own inputs: the timed ones
+    checks = {v: [0, None] for v in lab.VARIANTS}  # max abs err, plain ms
+    timed_in = {}  # B -> (n, each variant's plain wed) of the timed inputs
+    for B, nwin, cases in ((2048, 2, lab.MN_CASES), (16384, 1, (lab_own,))):
+        for mn in cases:
+            m, n, pmi = (t.to(dev) for t in
+                         lab.from_lab_layout(*lab.lab_inputs(B, 0, *mn)))
+            for v in lab.VARIANTS:
+                want, err = fill_check(v, nwin, m, n, pmi)
+                fields = dict(variant=v, B=B, nwin=nwin, m=mn[0], n=mn[1],
+                              plain_total=int(want.total), max_abs_err=err,
+                              tolerance=0)
+                if mn == lab_own:
+                    timed_in.setdefault(B, (n, {}))[1][v] = want.wed
+                if mn == lab_own and B == 2048:
+                    _, checks[v][1] = timed(lab.run_plain, v, lab.NWIN, m,
+                                            n, pmi)
+                    fields["plain_ms"] = f"{checks[v][1]:.3f}"
+                checks[v][0] = max(checks[v][0], err)
+                phase("fill-lab-vs-plain", **fields)
+                if err != 0:
+                    raise AssertionError(f"fill-lab kernel and plain differ "
+                                         f"({v}, B={B}, m={mn[0]}, "
+                                         f"n={mn[1]})")
 
     # the entry point's own measurement, counts set to 0 just before
     _cuda.GENASM_FILL_LAB.counts.clear()
     torch.cuda.synchronize()
     rows = {B: lab.measure(lab.VARIANTS, batch=B, device=dev)
-            for B in (2048, 16384)}
+            for B in timed_in}
     counts = dict(_cuda.GENASM_FILL_LAB.counts)
     entries = []
     for k, v in enumerate(lab.VARIANTS):
         if counts.get(k, 0) < 1:
             raise AssertionError(f"the lab never launched variant {v}")
-        for B in (2048, 16384):
+        bounds = {}
+        for B, (n, wed) in timed_in.items():
             r = next(x for x in rows[B] if x["variant"] == v)
+            if r["wed_sum"] != int(wed[v].sum()):
+                raise AssertionError(f"fill-lab timed run differs from "
+                                     f"plain ({v}, B={B})")
+            bounds[B] = fill_bound(v, wed[v], n, ops_rate)
             phase("fill-lab", variant=v, B=B, nwin=lab.NWIN,
                   ms=f"{r['ms']:.3f}",
                   us_per_window=f"{r['us_per_window']:.3f}",
-                  mean_wed=f"{r['mean_wed']:.3f}")
+                  mean_wed=f"{r['mean_wed']:.3f}",
+                  bound_ms=f"{bounds[B][0]:.6f}", bound_by=bounds[B][1],
+                  share_of_bound=f"{bounds[B][0] / r['ms']:.4f}")
         r = next(x for x in rows[2048] if x["variant"] == v)
-        # cells: each lane fills (wed+1) rows of W+1 columns per window,
-        # 7 64-bit ops a cell (two INT32 ops each); bytes: pmi, m and n
-        # read once, wed and the per-lane sum written once
-        ops = lab.NWIN * (r["wed_sum"] + 2048) * (lab.W + 1) * 14
-        nbytes = lab.W * 2048 * 8 + 2048 * (4 + 4 + 4 + 8)
-        t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         entries.append({
             "name": f"genasm_fill_lab[{v}]", "route": "cuda",
             "source": LAB_SOURCE, "replaces": LAB_REPLACES,
             "launches": counts[k], "max_abs_err": checks[v][0],
             "ms": r["ms"], "plain_ms": checks[v][1],
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bounds[2048][0], "bound_by": bounds[2048][1],
             "library_ms": None, "shape": f"B=2048 nwin={lab.NWIN}"})
     return entries
 
@@ -440,9 +501,7 @@ def main() -> int:
         summary = ptxas_summary(k.build_log)
         phase("build", source=src, seconds=f"{secs:.2f}",
               ptxas=repr(summary))
-        if (k in (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS)
-                and any(int(x) for x in re.findall(r"(\d+) B spill",
-                                                   summary))):
+        if any(int(x) for x in re.findall(r"(\d+) B spill", summary)):
             raise AssertionError(f"{src} spills to local memory: {summary}")
 
     # ---- 3. kernel against plain ----

@@ -115,11 +115,12 @@ GENASM_WINDOWS1 = CudaKernel(
      _P])                 # cudaStream_t
 
 # replaces tools/kernel_lab.py:run (fill_kernel); keyed by the variant,
-# 0 full, 1 nostore, 2 noff
+# 0 full, 1 nostore, 2 noff. A group of threads a lane; no forefront
+# scratch.
 GENASM_FILL_LAB = CudaKernel(
     "genasm_fill_lab.cu", "genasm_fill_lab_launch",
     [_I, _P, _P, _P, _I,  # nwin, m, n, pmi, B
-     _P, _P,              # R scratch, forefront scratch
+     _P,                  # R scratch (full only)
      _P, _P,              # wed, per-lane sum over windows
      _P])                 # cudaStream_t
 

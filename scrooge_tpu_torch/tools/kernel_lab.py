@@ -1,16 +1,19 @@
 """Kernel lab: the window kernel's DP fill alone, in three ablation variants.
 
 Port of the TPU lab ``tools/kernel_lab.py`` (``run``, body ``fill_kernel``).
-It splits the window kernel's time between the fill's arithmetic, its R
-stores and its forefront traffic:
+It splits a fill's time between its arithmetic, its R stores and the row
+above:
 
-  full     the fill with every cell stored to the forefront row and to R
+  full     the fill with every cell stored to R
   nostore  no stores to R
-  noff     no forefront stores either (the forefront reads as zeros)
+  noff     the row above reads as zeros, and no stores to R
 
-Fixed shape W=64 K=64 O=33; every lane has m=31 and n=W and random pattern
-masks, every window the same inputs. The kernel is
-``csrc/genasm_fill_lab.cu``; ``run_plain`` is its plain torch version.
+Fixed shape W=64 K=64 O=33; by default every lane has m=31 and n=W and
+random pattern masks (``lab_inputs``; ``MN_CASES`` lists the other m and
+n the tests use), every window the same inputs. The kernel is
+``csrc/genasm_fill_lab.cu``: a group of threads a lane on a wavefront over
+rows, the row above in registers and shuffles, nothing of it in device
+memory. ``run_plain`` is its plain torch version.
 
     python -m scrooge_tpu_torch.tools.kernel_lab [variant ...] \\
         [--batch 2048] [--device cuda|cpu]
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,24 +41,33 @@ LANE = 128
 M_DEFAULT = 31  # a typical mid-stream window, as in the TPU lab
 VARIANTS = ("full", "nostore", "noff")
 NWIN = 64  # windows a timed run fills, as in the TPU lab
+# (m, n) cases the kernel is held to, the lab's own (31, W) among them;
+# None draws each lane's value from 0..W. n = 0 makes every column a
+# start column (wed = m); mixed values spread wed across lanes.
+MN_CASES = tuple((m, n) for m in (1, 31, 64) for n in (0, 40, W)) + (
+    (None, None),)
 
 
 class LabResult(NamedTuple):
     total: torch.Tensor  # () int64: nwin * sum over lanes of wed
     wed: torch.Tensor    # (B,) int32 per-lane window edit distance
+    # (K+1, COLS, B) int64 in full, what the last window stored (rows
+    # that r_mismatches does not compare are unspecified); else None
+    R: Optional[torch.Tensor] = None
 
 
-def lab_inputs(batch: int, seed: int = 0):
+def lab_inputs(batch: int, seed: int = 0, m=M_DEFAULT, n=W):
     """The TPU lab's inputs in its own layout: m and n (S, 128) int32 and
     pmi (W, 2, S, 128) uint32, word 0 the low half, from
-    ``np.random.default_rng(seed)``."""
+    ``np.random.default_rng(seed)``. ``m`` and ``n`` are each lane's
+    value, or None for values drawn per lane from 0..W after pmi."""
     if batch % LANE:
         raise ValueError(f"batch={batch} must be a multiple of {LANE}")
     S = batch // LANE
     rng = np.random.default_rng(seed)
-    m = np.full((S, LANE), M_DEFAULT, np.int32)
-    n = np.full((S, LANE), W, np.int32)
     pmi = rng.integers(0, 2**32, (W, 2, S, LANE), dtype=np.uint32)
+    m, n = (rng.integers(0, W + 1, (S, LANE), dtype=np.int32) if v is None
+            else np.full((S, LANE), v, np.int32) for v in (m, n))
     return m, n, pmi
 
 
@@ -92,21 +104,26 @@ def run(variant: str, nwin: int, m, n, pmi, device="cuda") -> LabResult:
     m, n, pmi = (t.to(dev).contiguous() for t in (m, n, pmi))
     if dev.type == "cpu":
         return run_plain(variant, nwin, m, n, pmi)
+    return launch(_cuda.GENASM_FILL_LAB, variant, nwin, m, n, pmi)
+
+
+def launch(kernel, variant: str, nwin: int, m, n, pmi) -> LabResult:
+    """One launch of ``kernel`` (the fill-lab kernel, or a source variant
+    of it) on the device of its inputs; R, in full, is its only scratch
+    and comes back in the result."""
     B = _check(variant, nwin, m, n, pmi)
+    dev = m.device
     R = torch.empty(((K + 1) * COLS * B) if variant == "full" else 1,
                     dtype=torch.int64, device=dev)
-    # noff reads a forefront it never writes: zeros, as interpret mode
-    ff = (torch.zeros if variant == "noff" else torch.empty)(
-        (W + 1) * B, dtype=torch.int64, device=dev)
     wed = torch.empty(B, dtype=torch.int32, device=dev)
     acc = torch.empty(B, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        _cuda.GENASM_FILL_LAB.launch(
-            VARIANTS.index(variant), int(nwin), m.data_ptr(), n.data_ptr(),
-            pmi.data_ptr(), B, R.data_ptr(), ff.data_ptr(), wed.data_ptr(),
-            acc.data_ptr(), stream)
-    return LabResult(acc.sum(), wed)
+        kernel.launch(VARIANTS.index(variant), int(nwin), m.data_ptr(),
+                      n.data_ptr(), pmi.data_ptr(), B, R.data_ptr(),
+                      wed.data_ptr(), acc.data_ptr(), stream)
+    return LabResult(acc.sum(), wed, R.view(K + 1, COLS, B)
+                     if variant == "full" else None)
 
 
 def run_plain(variant: str, nwin: int, m, n, pmi) -> LabResult:
@@ -118,7 +135,7 @@ def run_plain(variant: str, nwin: int, m, n, pmi) -> LabResult:
     i64 = torch.int64
     s = (W - m).to(i64)
     n64 = n.to(i64)
-    ff = [torch.zeros(B, dtype=i64, device=dev)] * (W + 1)
+    above = [torch.zeros(B, dtype=i64, device=dev)] * (W + 1)  # row d-1
     R = (torch.zeros((K + 1, COLS, B), dtype=i64, device=dev)
          if variant == "full" else None)
     found = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -129,13 +146,13 @@ def run_plain(variant: str, nwin: int, m, n, pmi) -> LabResult:
                              << sh.clamp(0, 63))
         right = topright = torch.zeros(B, dtype=i64, device=dev)
         for i in range(W, -1, -1):
-            top = ff[i]
+            top = above[i]
             mat = (right << 1) | pmi[min(i, W - 1)]
             if d > 0:
                 mat = mat & (topright << 1) & (top << 1) & topright
             center = torch.where(i >= n64, ones_d, mat)
             if variant != "noff":
-                ff[i] = center
+                above[i] = center
             if R is not None:
                 R[d, min(i, COLS - 1)] = center
             topright, right = top, center
@@ -144,7 +161,22 @@ def run_plain(variant: str, nwin: int, m, n, pmi) -> LabResult:
         found = found | hit
         if bool(found.all()):
             break
-    return LabResult(wed.sum() * nwin, wed.to(torch.int32))
+    return LabResult(wed.sum() * nwin, wed.to(torch.int32), R)
+
+
+def r_mismatches(got: LabResult, want: LabResult) -> int:
+    """Words of R (full) in which ``got`` differs from ``want``, the plain
+    version's result, in the rows both must store: rows 0..wed of a lane
+    that hit (bit 63 of its column 0 clear at row wed), 0..K of a lane
+    that never did. Rows past those are left to each version."""
+    Rg, Rw = got.R.to(want.R.device), want.R
+    B = Rw.shape[2]
+    wed = want.wed.long().to(Rw.device)
+    lanes = torch.arange(B, device=Rw.device)
+    hit = ((Rw[wed, 0, lanes] >> 63) & 1) == 0
+    last = torch.where(hit, wed, K)
+    rows = torch.arange(K + 1, device=Rw.device)[:, None, None]
+    return int(((Rg != Rw) & (rows <= last)).sum().item())
 
 
 def _time_ms(fn, dev) -> float:

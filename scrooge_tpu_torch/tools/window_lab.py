@@ -24,14 +24,24 @@ wide path):
   tb8      CH = 8 traceback offsets a batch of R loads at two words (full
            has 4)
 
+``csrc/genasm_fill_lab.cu`` (the fill lab, kernel_lab.py's kernel, at
+2048 and 16384 lanes, its full / nostore / noff each):
+
+  full     the source as it is: G = 8 threads a lane, 64 a block
+  g4       G = 4 threads a lane
+  g16      G = 16 threads a lane
+
 A variant is the source with named text edits, each of which must match
 exactly once, so a change to the kernel that moves an anchor fails here
 rather than timing something else. No variant changes what the kernel
-computes: each must give full's output exactly. Samples of 3 calls are
-timed with CUDA events, the variants in turns.
+computes: each must give full's output exactly (a fill-lab variant:
+run_plain's wed, sums and R). Samples are timed with CUDA events, the
+variants in turns: 3 calls a sample on the tile, one 64-window launch
+in the fill lab.
 
     python -m scrooge_tpu_torch.tools.window_lab [variant ...] \\
-        [--source genasm_windows1.cu|genasm_windows.cu] [--reads 16384]
+        [--source genasm_windows1.cu|genasm_windows.cu|genasm_fill_lab.cu] \\
+        [--reads 16384]
 
 needs a CUDA card: there is no plain version of a timing variant.
 """
@@ -117,7 +127,14 @@ SOURCES = {
         ),
         "tb8": (("  return NW == 2 ? 4 : 8;", "  return 8;"),),
     }),
+    "genasm_fill_lab.cu": (_cuda.GENASM_FILL_LAB, None, {
+        "full": (),
+        "g4": (("constexpr int G = 8;", "constexpr int G = 4;"),),
+        "g16": (("constexpr int G = 8;", "constexpr int G = 16;"),),
+    }),
 }
+FILL_LAB = "genasm_fill_lab.cu"
+FILL_BATCHES = (2048, 16384)  # lanes the fill lab's variants are timed at
 DEFAULT_SOURCE = "genasm_windows1.cu"
 # the one-word kernel's variants
 VARIANTS = tuple(SOURCES[DEFAULT_SOURCE][2])
@@ -205,6 +222,33 @@ def _max_sm_mhz() -> float:
     return float(out.split()[0])
 
 
+def time_in_turns(calls, rounds: int = 3, reps: int = 1):
+    """``rounds`` samples of ``reps`` calls of each of ``calls`` (key ->
+    function), the keys in turns, timed with CUDA events. Returns key ->
+    ms a call of each sample."""
+    samples = {key: [] for key in calls}
+    for _ in range(rounds):
+        for key, fn in calls.items():
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(reps):
+                fn()
+            t1.record()
+            t1.synchronize()
+            samples[key].append(t0.elapsed_time(t1) / reps)
+    return samples
+
+
+def _rows(kernels, cases, same, samples, extra=None):
+    """One dict per (variant, case): its check, samples and median, and
+    ``extra[variant]``'s entries."""
+    return [dict(variant=v, case=c, same=same[v], samples=samples[v, c],
+                 median_ms=statistics.median(samples[v, c]),
+                 ptxas=_ptxas(k.build_log), **(extra or {}).get(v, {}))
+            for v, k in kernels.items() for c in cases]
+
+
 def measure(variants, staged, rounds: int = 3, reps: int = 3,
             source: str = DEFAULT_SOURCE):
     """Each variant of ``source`` built, held against the engine's own
@@ -214,25 +258,52 @@ def measure(variants, staged, rounds: int = 3, reps: int = 3,
     kernels = {v: variant_kernel(v, source) for v in variants}
     _cuda.build_all(tuple(kernels.values()))
     want = engine.align_windows(cfg, maxw, *args)
-    rows = {}
+    same, cycles = {}, {}
     for v, k in kernels.items():
         got, cyc = launch(k, cfg, maxw, args, 3 if v == "clocks" else 0)
-        rows[v] = dict(variant=v, same=_same(got, want), samples=[],
-                       ptxas=_ptxas(k.build_log), cycles=cyc)
-    for _ in range(rounds):
-        for v, k in kernels.items():
-            extra = 3 if v == "clocks" else 0
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(reps):
-                launch(k, cfg, maxw, args, extra)
-            t1.record()
-            t1.synchronize()
-            rows[v]["samples"].append(t0.elapsed_time(t1) / reps)
-    for r in rows.values():
-        r["median_ms"] = statistics.median(r["samples"])
-    return list(rows.values())
+        same[v] = _same(got, want)
+        cycles[v] = dict(cycles=cyc)
+    samples = time_in_turns(
+        {(v, ""): (lambda k=k, e=3 if v == "clocks" else 0:
+                   launch(k, cfg, maxw, args, e))
+         for v, k in kernels.items()}, rounds, reps)
+    return _rows(kernels, ("",), same, samples, cycles)
+
+
+def measure_fill(variants, rounds: int = 3):
+    """Each source variant of the fill lab, held against ``run_plain`` on
+    the lab's inputs and the random (m, n) case (2 windows, 2048 lanes:
+    wed, the sums and in full R's rows 0..wed), then timed in turns:
+    ``rounds`` samples of one NWIN-window launch for every variant, lab
+    variant and batch of FILL_BATCHES. Returns one dict per (variant,
+    case), the case naming the lab variant and the batch."""
+    from . import kernel_lab as lab
+
+    dev = torch.device("cuda")
+    kernels = {v: variant_kernel(v, FILL_LAB) for v in variants}
+    _cuda.build_all(tuple(kernels.values()))
+    same = dict.fromkeys(kernels, True)
+    for mn in ((lab.M_DEFAULT, lab.W), (None, None)):
+        args = [t.to(dev) for t in
+                lab.from_lab_layout(*lab.lab_inputs(2048, 0, *mn))]
+        for lv in lab.VARIANTS:
+            want = lab.run_plain(lv, 2, *args)
+            for v, k in kernels.items():
+                got = lab.launch(k, lv, 2, *args)
+                same[v] &= (torch.equal(got.wed, want.wed)
+                            and int(got.total) == int(want.total)
+                            and (lv != "full"
+                                 or lab.r_mismatches(got, want) == 0))
+    inputs = {B: [t.to(dev) for t in lab.from_lab_layout(*lab.lab_inputs(B))]
+              for B in FILL_BATCHES}
+    cases = {f"{lv} B={B}": (lv, B) for lv in lab.VARIANTS
+             for B in FILL_BATCHES}
+    samples = time_in_turns(
+        {(v, c): (lambda k=k, lv=lv, B=B:
+                  lab.launch(k, lv, lab.NWIN, *inputs[B]))
+         for v, k in kernels.items() for c, (lv, B) in cases.items()},
+        rounds)
+    return _rows(kernels, cases, same, samples)
 
 
 def section_split(cycles: torch.Tensor, mhz: float):
@@ -256,27 +327,34 @@ def main(argv=None) -> int:
     for v in variants:
         variant_source(v, args.source)  # names and anchors, before work
     dev = resolve_device("cuda")
-    import scrooge_tpu_torch as st
-    from ..profiling import kernel_time
-    from ..utils.simulate import simulate_dataset
-
-    W, K, O = SOURCES[args.source][1]
-    cfg = AlignConfig(W=W, K=K, O=O, batch_tile=args.reads)
-    ds = simulate_dataset(genome_len=1_000_000, num_reads=args.reads,
-                          read_len=10000, accuracy=0.95, seed=7)
-    staged = kernel_time.stage_mapped(st.prepare_genome(ds.genome),
-                                      ds.reads, cfg, dev)
+    variants = ["full"] + [v for v in variants if v != "full"]
     where = torch.cuda.get_device_name(dev)
-    rows = measure(["full"] + [v for v in variants if v != "full"],
-                   staged, source=args.source)
-    full = rows[0]["median_ms"]
+    if args.source == FILL_LAB:
+        rows, oracle = measure_fill(variants), "plain"
+        where += ", 64 windows"
+    else:
+        import scrooge_tpu_torch as st
+        from ..profiling import kernel_time
+        from ..utils.simulate import simulate_dataset
+
+        W, K, O = SOURCES[args.source][1]
+        cfg = AlignConfig(W=W, K=K, O=O, batch_tile=args.reads)
+        ds = simulate_dataset(genome_len=1_000_000, num_reads=args.reads,
+                              read_len=10000, accuracy=0.95, seed=7)
+        staged = kernel_time.stage_mapped(st.prepare_genome(ds.genome),
+                                          ds.reads, cfg, dev)
+        rows = measure(variants, staged, source=args.source)
+        oracle = "the engine"
+        where += f", {staged[3]} reads"
+    full = {r["case"]: r["median_ms"] for r in rows
+            if r["variant"] == "full"}
     for r in rows:
         samples = " ".join(f"{x:.3f}" for x in r["samples"])
         med = r["median_ms"]
-        print(f"{r['variant']:7s}: {samples} ms, median {med:.3f} "
-              f"({med / full:.3f} x full), same output as the engine: "
-              f"{r['same']}, "
-              f"{r['ptxas']} ({where}, {staged[3]} reads)", flush=True)
+        label = f"{r['variant']} {r['case']}".strip()
+        print(f"{label:7s}: {samples} ms, median {med:.3f} "
+              f"({med / full[r['case']]:.3f} x full), same output as "
+              f"{oracle}: {r['same']}, {r['ptxas']} ({where})", flush=True)
         if r["variant"] == "clocks":
             s = section_split(r["cycles"], _max_sm_mhz())
             print("clocks : share of lane cycles "
@@ -286,7 +364,7 @@ def main(argv=None) -> int:
                   f"{s['mean_lane_ms']:.3f} ms, largest "
                   f"{s['max_lane_ms']:.3f} ms", flush=True)
     if not all(r["same"] for r in rows):
-        raise SystemExit("a variant's output differs from the engine's")
+        raise SystemExit(f"a variant's output differs from {oracle}'s")
     return 0
 
 

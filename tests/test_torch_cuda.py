@@ -206,16 +206,42 @@ def test_api_on_cuda(cuda):
     assert on_card == st.align_pairs(texts, queries, device="cpu")
 
 
+@pytest.mark.parametrize("case", [(31, 64, 2048, True)]
+                         + [(m, n, 2048, False) for m, n in
+                            kernel_lab.MN_CASES]
+                         + [(None, None, 100, False)],
+                         ids=lambda c: "m{}-n{}-B{}".format(*c[:3])
+                         + ("-n40every7" if c[3] else ""))
 @pytest.mark.parametrize("variant", kernel_lab.VARIANTS)
-def test_fill_lab_kernel_matches_plain(cuda, variant):
+def test_fill_lab_kernel_matches_plain(cuda, variant, case):
+    """The lane-group kernel against run_plain on the lab's inputs with
+    n = 40 in every 7th lane, the (m, n) cases and a ragged batch (the
+    first 100 lanes: a part-filled last block): wed, the sums and, in
+    full, the rows of R both must store; it allocates no forefront
+    scratch."""
+    m_case, n_case, B, n40 = case
     m, n, pmi = (t.to(cuda) for t in kernel_lab.from_lab_layout(
-        *kernel_lab.lab_inputs(2048)))
-    n[::7] = 40  # start columns inside the window for some lanes
-    before = _cuda.GENASM_FILL_LAB.counts[kernel_lab.VARIANTS.index(variant)]
-    got = kernel_lab.run(variant, 3, m, n, pmi, device=cuda)
-    want = kernel_lab.run_plain(variant, 3, m, n, pmi)
+        *kernel_lab.lab_inputs(2048, 0, m_case, n_case)))
+    if n40:
+        n[::7] = 40  # start columns inside the window for some lanes
+    m, n, pmi = m[:B].contiguous(), n[:B].contiguous(), pmi[:, :B].contiguous()
+    key = kernel_lab.VARIANTS.index(variant)
+    kernel_lab.run(variant, 1, m, n, pmi, device=cuda)  # build
     torch.cuda.synchronize()
-    assert _cuda.GENASM_FILL_LAB.counts[
-        kernel_lab.VARIANTS.index(variant)] == before + 1
+    before = _cuda.GENASM_FILL_LAB.counts[key]
+    held = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = kernel_lab.run(variant, 3, m, n, pmi, device=cuda)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated(cuda) - held
+    want = kernel_lab.run_plain(variant, 3, m, n, pmi)
+    assert _cuda.GENASM_FILL_LAB.counts[key] == before + 1
     assert torch.equal(got.wed.cpu(), want.wed.cpu())
     assert int(got.total) == int(want.total)
+    assert (got.R is None) == (variant != "full")
+    if variant == "full":
+        assert kernel_lab.r_mismatches(got, want) == 0
+    # R (full only), wed, the per-lane sums and their total; a forefront
+    # would add (W+1) * B words
+    R = (kernel_lab.K + 1) * kernel_lab.COLS * B * 8
+    assert scratch <= (R if variant == "full" else 0) + 12 * B + 4 * 512

@@ -1,5 +1,5 @@
-"""The window lab's source variants of csrc/genasm_windows1.cu and
-csrc/genasm_windows.cu.
+"""The window lab's source variants of csrc/genasm_windows1.cu,
+csrc/genasm_windows.cu and csrc/genasm_fill_lab.cu.
 
 The variants are built and timed only on a card; here each one's text
 edits are checked against the kernel source as it stands, so a change to
@@ -56,6 +56,20 @@ def test_multiword_variant_source_applies(variant):
         assert "  return 8;" in got and "NW == 2 ? 4 : 8" not in got
 
 
+@pytest.mark.parametrize(
+    "variant", tuple(window_lab.SOURCES["genasm_fill_lab.cu"][2]))
+def test_fill_lab_variant_source_applies(variant):
+    path = os.path.join(_cuda.CSRC, _cuda.GENASM_FILL_LAB.source)
+    with open(path) as f:
+        src = f.read()
+    got = window_lab.variant_source(variant, "genasm_fill_lab.cu")
+    assert (got == src) == (variant == "full")
+    assert len(got.splitlines()) == len(src.splitlines())
+    group = {"g4": 4, "g16": 16}.get(variant, 8)
+    assert f"constexpr int G = {group};" in got
+    assert "constexpr int THREADS = 64;" in got
+
+
 def test_variant_anchor_must_match_once(monkeypatch):
     edits = window_lab.SOURCES[window_lab.DEFAULT_SOURCE][2]
     monkeypatch.setitem(edits, "ch4",
@@ -67,7 +81,9 @@ def test_variant_anchor_must_match_once(monkeypatch):
     with pytest.raises(ValueError, match="is not one of"):
         window_lab.variant_source("ch4", "genasm_windows.cu")
     with pytest.raises(ValueError, match="is not one of"):
-        window_lab.variant_source("full", "genasm_fill_lab.cu")
+        window_lab.variant_source("full", "genasm_no_such_kernel.cu")
+    with pytest.raises(ValueError, match="is not one of"):
+        window_lab.variant_source("ffsmem", "genasm_fill_lab.cu")
 
 
 def test_lab_needs_a_card(monkeypatch):

@@ -35,7 +35,22 @@ Phases, one line each:
      kernel_lab.MN_CASES (the lab's own inputs among them), and at 16384
      lanes, 1 window, on the lab's inputs (per-lane wed, the sum and, in full, the rows of
      R both must store, identical), then the lab entry point's timing at
-     64 windows for 2048 and 16384 lanes, each beside its bound.
+     64 windows for 2048 and 16384 lanes, each beside its bound;
+  9. file path, the CLIs of scrooge_tpu_torch.cli on the card:
+     tests_cli --unit_tests (the one-word kernel must launch); phase 4's
+     bench dataset written to a temporary directory as reference.fasta,
+     reads.fastq and candidates.maf, each parsed alone and timed, then run
+     through tests_cli's performance_test (parse, seed join, align_reads
+     with the CLI's
+     default config, every CIGAR checked): each of the 16384 alignments
+     must equal phase 4's strings for the same (read, location), the
+     one-word kernel must launch and the multiword one must not; the same
+     files again through tests_cli --profile, whose torch.profiler trace
+     must hold the window kernel and gives the device's busy and idle
+     share of the align_reads call; then baseline_cli --accuracy --cigar
+     --algorithms=genasm_device,exact on the first 64 reads of phase 7's
+     512 x 2 kbp set written to files, whose genasm_device lines must
+     equal align_reads on the card for the same pairs.
 
 Then the kernels' JSON line, the card line again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -46,11 +61,15 @@ pyref, cigar, utils.simulate and plain versions.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -288,7 +307,7 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     window kernels' counts set to 0 just before and read just after;
     checks both outputs agree, ``nsample`` pairs (the longest read among
     them) equal pyref and ``ncigar`` CIGARs are valid. Returns the counts,
-    {kernel: {key: launches}}."""
+    {kernel: {key: launches}}, and the string output."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch import pyref
     from scrooge_tpu_torch.cigar import is_valid_cigar
@@ -342,7 +361,7 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
           packed_aligns_per_s=f"{n / pwall:.1f}",
           breakdown=repr(stats.breakdown()),
           packed_breakdown=repr(pstats.breakdown()))
-    return counts
+    return counts, strs
 
 
 def kernel_only(label, staged, n):
@@ -467,6 +486,178 @@ def fill_lab(ops_rate):
     return entries
 
 
+def captured(main, argv):
+    """(exit code, stdout) of a CLI's main run in this process."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def trace_shares(path):
+    """From a torch.profiler chrome trace: (window-kernel launches, their
+    ms, the device's busy share, the annotated call's ms) over the
+    ``align_reads`` annotation. Busy is the union of kernel, copy and set
+    intervals on the device within the call; idle is the rest."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("name") == "align_reads"
+                and e.get("cat") == "user_annotation")
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    on_dev = sorted((max(float(e["ts"]), t0),
+                     min(float(e["ts"]) + float(e["dur"]), t1))
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and "dur" in e)
+    busy, end = 0.0, t0
+    for a, b in on_dev:
+        a = max(a, end)
+        if b > a:
+            busy, end = busy + b - a, b
+    window = [e for e in events if e.get("cat") == "kernel"
+              and "genasm_windows1_kernel" in e.get("name", "")]
+    return (len(window), sum(float(e["dur"]) for e in window) / 1e3,
+            busy / (t1 - t0), (t1 - t0) / 1e3)
+
+
+def file_path(ds, main_strs, small, dev, tmp):
+    """Phase 9: the CLIs on the card, from files (see the docstring)."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch import io as sio
+    from scrooge_tpu_torch.cigar import affine_score, edits_in_cigar
+    from scrooge_tpu_torch.cli import baseline_cli, tests_cli
+    from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.utils.simulate import (SimulatedDataset,
+                                                  write_dataset)
+
+    one, multi = _cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS
+
+    def reset():
+        one.counts.clear()
+        multi.counts.clear()
+        torch.cuda.synchronize()
+
+    # 1. the unit tests on the card
+    reset()
+    t0 = time.perf_counter()
+    rc, out = captured(tests_cli.main, ["--unit_tests"])
+    launches = sum(one.counts.values())
+    passed = re.findall(r"^PASSED (\S+)$", out, re.M)
+    phase("file-unit-tests", rc=rc, passed=",".join(passed),
+          launches=launches, seconds=f"{time.perf_counter() - t0:.2f}")
+    if rc != 0 or "FAILED" in out or len(passed) != 5 or launches < 1:
+        raise AssertionError(f"tests_cli --unit_tests on the card:\n{out}")
+
+    # 2. the bench dataset from files through performance_test
+    bench = os.path.join(tmp, "bench")
+    t0 = time.perf_counter()
+    write_dataset(ds, bench)
+    write_s = time.perf_counter() - t0
+    files = [os.path.join(bench, f) for f in ("reference.fasta",
+                                              "reads.fastq",
+                                              "candidates.maf")]
+    nbytes = sum(os.path.getsize(f) for f in files)
+    # each file parsed alone: where the CLI's parse stage goes
+    parse = {}
+    for name, read, path in (("fasta", sio.read_genome, files[0]),
+                             ("fastq", sio.read_fastq, files[1]),
+                             ("maf", sio.read_maf, files[2])):
+        t0 = time.perf_counter()
+        parsed = read(path)
+        parse[f"{name}_s"] = f"{time.perf_counter() - t0:.3f}"
+        parse[f"{name}_records"] = (len(parsed.chromosome_starts)
+                                    if name == "fasta" else len(parsed))
+    phase("file-parse", **parse)
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        run = tests_cli.performance_test(*files, st.AlignConfig(), dev)
+    total_s = time.perf_counter() - t0
+    counts = {k.source: dict(k.counts) for k in (one, multi)}
+    lines = buf.getvalue().splitlines()
+    want = {(r.description, r.locations[0].start_in_reference):
+            (a.edit_distance, a.cigar) for r, a in zip(ds.reads, main_strs)}
+    keys = [(r.description, loc.start_in_reference) for r in run.reads
+            for loc in r.locations]
+    got = {k: (a.edit_distance, a.cigar)
+           for k, a in zip(keys, run.alignments)}
+    ns = run.stage_ns
+    phase("file-path", pairs=len(run.alignments), files_mb=f"{nbytes / 1e6:.1f}",
+          write_s=f"{write_s:.3f}",
+          parse_reference_s=f"{ns['reference'] / 1e9:.3f}",
+          parse_reads_seeds_join_s=f"{ns['reads_seeds'] / 1e9:.3f}",
+          shape_s=f"{ns['shape'] / 1e9:.3f}",
+          end_to_end_s=f"{ns['align'] / 1e9:.3f}",
+          kernel_ms=f"{run.stats.core_ns / 1e6:.3f}",
+          cigar_check_s=f"{ns['check'] / 1e9:.3f}",
+          total_s=f"{total_s:.3f}",
+          aligns_per_s=f"{len(run.alignments) * 1e9 / ns['align']:.1f}",
+          launches=json.dumps(counts), retried=run.stats.retried_pairs,
+          breakdown=repr(run.stats.breakdown()), cli=repr(lines))
+    if any("FAILED" in ln for ln in lines) or len(lines) != 3:
+        raise AssertionError(f"file path output: {lines}")
+    if len(got) != len(ds.reads) or got != want:
+        bad = sum(got.get(k) != v for k, v in want.items())
+        raise AssertionError(f"file path: {bad} of {len(want)} alignments "
+                             "differ from the library path's")
+    if sum(counts[one.source].values()) < 1 or counts[multi.source]:
+        raise AssertionError(f"file path launches: {counts}")
+
+    # 3. the same files through the CLI with --profile
+    trace_dir = os.path.join(tmp, "trace")
+    reset()
+    t0 = time.perf_counter()
+    rc, out = captured(tests_cli.main, [f"--reference={files[0]}",
+                                        f"--reads={files[1]}",
+                                        f"--seeds={files[2]}",
+                                        f"--profile={trace_dir}"])
+    total_s = time.perf_counter() - t0
+    n_kernels, kernel_ms, busy, span_ms = trace_shares(
+        os.path.join(trace_dir, "trace.json"))
+    phase("file-path-profile", rc=rc, total_s=f"{total_s:.3f}",
+          launches=sum(one.counts.values()),
+          window_kernels_in_trace=n_kernels,
+          window_kernel_ms_in_trace=f"{kernel_ms:.3f}",
+          align_reads_ms_in_trace=f"{span_ms:.3f}",
+          device_busy_share=f"{busy:.4f}",
+          device_idle_share=f"{1 - busy:.4f}",
+          cli=repr(out.splitlines()[-3:]))
+    if rc != 0 or "FAILED" in out or n_kernels < 1:
+        raise AssertionError("tests_cli --profile on the bench files: "
+                             f"rc={rc}, {n_kernels} window kernels traced")
+
+    # 4. baseline_cli on 64 reads of 2 kbp
+    sub = SimulatedDataset(genome=small.genome, reads=small.reads[:64])
+    sdir = os.path.join(tmp, "small")
+    write_dataset(sub, sdir)
+    reset()
+    t0 = time.perf_counter()
+    rc, out = captured(baseline_cli.main, [
+        f"--reference={sdir}/reference.fasta", f"--reads={sdir}/reads.fastq",
+        f"--seeds={sdir}/candidates.maf", "--accuracy", "--cigar",
+        "--algorithms=genasm_device,exact"])
+    cli_s = time.perf_counter() - t0
+    launches = sum(one.counts.values())
+    rows = [ln for ln in out.splitlines() if ln.startswith("pair_idx=")]
+    alns = st.align_reads(small.genome, sub.reads, st.AlignConfig(
+        batch_tile=2048), device=dev)
+    expect = []
+    for i, (r, a) in enumerate(zip(sub.reads, alns)):
+        s = r.locations[0].start_in_reference
+        expect.append(f"pair_idx={i} score={affine_score(a.cigar)} "
+                      f"cigar={a.cigar} read={r.content} "
+                      f"reference={small.genome.content[s : s + len(r.content)]}")
+    edits = lambda ln: edits_in_cigar(ln.split()[2][len("cigar="):])
+    phase("file-baseline", rc=rc, pairs=len(expect), seconds=f"{cli_s:.2f}",
+          launches=launches, genasm_device_rows_equal=rows[:64] == expect,
+          exact_rows=len(rows[64:]),
+          exact_edits_at_most_genasm=sum(edits(e) <= edits(g) for e, g in
+                                         zip(rows[64:], rows[:64])))
+    if rc != 0 or rows[:64] != expect or len(rows) != 128 or launches < 1:
+        raise AssertionError("baseline_cli genasm_device lines differ from "
+                             "align_reads on the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -535,7 +726,9 @@ def main() -> int:
     windows = {1: (cfg, staged, main_tile)}
 
     # ---- 4. main path ----
-    counts = {1: drive_path("main-path", cfg, ds, prepared, dev, 16, 512)}
+    counts = {}
+    counts[1], main_strs = drive_path("main-path", cfg, ds, prepared, dev, 16,
+                                      512)
     if sum(counts[1][_cuda.GENASM_WINDOWS].values()) != 0:
         raise AssertionError("the main path launched the multiword kernel")
 
@@ -554,7 +747,7 @@ def main() -> int:
     wstaged = kernel_time.stage_mapped(prepared, ds.reads, wcfg, dev)
     wide_tile = compare(wcfg, wstaged[1], wstaged[2], "wide tile")
     windows[2] = (wcfg, wstaged, wide_tile)
-    counts[2] = drive_path("wide-path", wcfg, ds, prepared, dev, 16, 512)
+    counts[2], _ = drive_path("wide-path", wcfg, ds, prepared, dev, 16, 512)
     kernel_only("wide-kernel-only", wstaged, len(ds.reads))
     small = simulate_dataset(genome_len=200_000, num_reads=512,
                              read_len=2000, accuracy=0.95, seed=11)
@@ -563,8 +756,8 @@ def main() -> int:
         c = st.AlignConfig(W=W, K=K, O=O, batch_tile=512)
         sst = kernel_time.stage_mapped(sprep, small.reads, c, dev)
         windows[nw] = (c, sst, compare(c, sst[1], sst[2], "512x2kbp"))
-        counts[nw] = drive_path(f"wide-path-w{W}", c, small, sprep, dev, 4,
-                                128)
+        counts[nw], _ = drive_path(f"wide-path-w{W}", c, small, sprep, dev,
+                                   4, 128)
 
     kernels = []
     rows = [(nw, engine.window_kernel(c), c, sst, cmp, counts[nw])
@@ -591,6 +784,10 @@ def main() -> int:
 
     # ---- 8. fill lab ----
     kernels += fill_lab(ops_rate)
+
+    # ---- 9. file path ----
+    with tempfile.TemporaryDirectory(prefix="scrooge_file_path_") as tmp:
+        file_path(ds, main_strs, small, dev, tmp)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,9 +4,10 @@ Port of scrooge_tpu/api.py: ``align_pairs`` (:965-1140), ``align_reads``
 (:1229-1455), ``align_all`` (:1458), ``PreparedGenome``/``prepare_genome``
 (:1143-1227), the result pipeline of ``_build_alignments`` (:439-639), the
 token readback of ``_consume_tokens`` (:371-436), and its own copies of
-``AlignmentError``, ``encode_np``, ``AlignStats`` (:45-127), the packed
-assembly and the scalar retry (:658-771) and the pyref backend (:945-963,
-:1259-1287). Every public entry point takes an explicit ``device``;
+``AlignmentError``, ``encode_np``, ``AlignStats`` (:45-127), the
+``enabled_algorithm_log`` switch and its stderr line (:39-42, :936-942),
+the packed assembly and the scalar retry (:658-771) and the pyref backend
+(:945-963, :1259-1287). Every public entry point takes an explicit ``device``;
 nothing here keeps a global device.
 
 Per tile of ``cfg.batch_tile`` pairs (longest reads first): pack on the
@@ -24,6 +25,7 @@ that fail go straight to the scalar oracle (``pyref``), which raises
 
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
@@ -36,6 +38,13 @@ from .cigar import parse_cigar
 from .config import AlignConfig
 from .datamodel import Alignment, Genome, PackedAlignments, Read
 from .ops import compact, engine, pack, tokens
+
+
+# genasm_cpu::enabled_algorithm_log (genasm_cpu.cpp:121): when set, every
+# align_pairs / align_reads call prints "core algorithm ran at N
+# aligns/second" to stderr. Profiling tools scrape that line, so its format
+# is API. The CLIs set it from --verbose.
+enabled_algorithm_log = False
 
 
 class AlignmentError(ValueError):
@@ -173,6 +182,12 @@ def _retry_pyref(cfg, text_codes: np.ndarray, pattern_codes: np.ndarray,
     return Alignment(cigar=cigar, edit_distance=ed)
 
 
+def _log_throughput(stats: AlignStats) -> None:
+    if enabled_algorithm_log:
+        print(f"core algorithm ran at {int(stats.aligns_per_second)} "
+              "aligns/second", file=sys.stderr)
+
+
 def _pyref_align(pairs, cfg, stats, return_stats, return_packed):
     """Scalar-oracle backend over (text, query) string pairs: non-ACGT
     input raises ValueError, an unalignable pair AlignmentError, as on
@@ -185,6 +200,7 @@ def _pyref_align(pairs, cfg, stats, return_stats, return_packed):
     stats.core_ns += time.perf_counter_ns() - tc0
     if return_packed:
         out = _assemble_packed(out)
+    _log_throughput(stats)
     return (out, stats) if return_stats else out
 
 
@@ -306,6 +322,7 @@ def _finish(n: int, results, retry, parts, cfg, stats, return_stats,
             out = _assemble_packed_parts(n, parts, results)
     else:
         out = results
+    _log_throughput(stats)
     return (out, stats) if return_stats else out
 
 

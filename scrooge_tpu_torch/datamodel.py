@@ -1,13 +1,22 @@
 """Data model: Python equivalents of the reference's core types.
 
 The port's own copy of ``scrooge_tpu/datamodel.py`` (the reference's
-util.hpp:11-46: Genome_t, CandidateLocation_t, Read_t, Alignment_t).
+util.hpp:11-46: Sequence_t, Genome_t, CandidateLocation_t, Read_t,
+Alignment_t).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List
+
+
+@dataclass
+class Sequence:
+    """One FASTA record (util.hpp:11-14), as ``io.read_fasta`` returns it."""
+
+    description: str
+    content: str
 
 
 @dataclass

@@ -17,8 +17,11 @@ import sys
 
 import torch
 import scrooge_tpu_torch as st
+from scrooge_tpu_torch import baselines, cigar, io, wfa
+from scrooge_tpu_torch.cli import baseline_cli, options, tests_cli
 from scrooge_tpu_torch.ops import _cuda, engine, pack
-from scrooge_tpu_torch.tools import kernel_lab, window_lab
+from scrooge_tpu_torch.tools import (cigar_tools, convert, kernel_lab,
+                                     window_lab)
 from scrooge_tpu_torch.utils.simulate import edge_pairs
 
 for backend in ("auto", "pyref"):
@@ -47,6 +50,11 @@ res = engine.align_batch(cfg, cfg.max_windows(180),
                          pack.pack_2bit(torch.from_numpy(pattern)),
                          torch.from_numpy(plen))
 assert int((res.failed == engine.FAIL_TB).sum()) > 0
+assert "matplotlib" not in sys.modules  # cigar_tools.inspect loads it
+assert tests_cli.main(["--unit_tests", "--device=cpu"]) == 0
+assert baseline_cli.main(["--simulated=2,150", "--threads=128",
+                          "--algorithms=genasm_device,exact,wfa",
+                          "--accuracy", "--device=cpu"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "scrooge_tpu"))
 assert not loaded, loaded
@@ -66,7 +74,8 @@ def test_port_imports_and_aligns_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.splitlines()[-1] == "ok"
+    assert out.stdout.count("PASSED ") == 5 and "FAILED" not in out.stdout
 
 
 def test_port_sources_never_import_jax():

@@ -5,7 +5,7 @@
 Phases, one line each:
   1. toolchain: torch, CUDA, nvcc, triton, and the card as nvidia-smi
      reports it (its own line);
-  2. build: compile the three kernel sources from csrc/ with nvcc, one
+  2. build: compile the four kernel sources from csrc/ with nvcc, one
      process each, started together; registers and spills of every
      instantiation, and no kernel may spill;
   3. kernel against plain: the window kernel and the plain torch engine on
@@ -50,7 +50,22 @@ Phases, one line each:
      share of the align_reads call; then baseline_cli --accuracy --cigar
      --algorithms=genasm_device,exact on the first 64 reads of phase 7's
      512 x 2 kbp set written to files, whose genasm_device lines must
-     equal align_reads on the card for the same pairs.
+     equal align_reads on the card for the same pairs;
+ 10. windows wider than 256 (genasm_windows_wide.cu, a group of G threads
+     a pair): the kernel against plain on 256 pairs of ~2 kbp at W/K/O
+     257/257/129 (one bit in the top word), 320/320/161, 512/512/257 and
+     512/512/0 (G = 8) and on 64 pairs at 1024/1024/513 (G = 16) and
+     2048/2048/1025 (G = 32); on 256 unrelated pairs at 512/64/257, which
+     must give FAIL_TB lanes; one tile split into several launches by a
+     small scratch budget against one launch; then the slice's path,
+     align_reads at W=512 K=512 O=257 on the first 1024 reads of phase
+     4's dataset (one tile), strings then packed, checked as in phase 4
+     with the wide kernel's launch count, the kernel against plain on
+     that tile and its kernel-only time; then the sweep entry point on the
+     card, ``device simulated:1024:10000 --families WO --max_W 512
+     --max_experiments 2`` into a temporary directory, whose CSV must hold
+     W = 256 and 512, each with and without ET, at a positive rate, with
+     the engine that ran.
 
 Then the kernels' JSON line, the card line again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -62,6 +77,7 @@ pyref, cigar, utils.simulate and plain versions.
 from __future__ import annotations
 
 import contextlib
+import csv
 import io
 import json
 import os
@@ -78,6 +94,9 @@ import torch
 WINDOWS_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows.cu"
 WINDOWS1_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows1.cu"
 WINDOWS_REPLACES = "scrooge_tpu/ops/engine_pallas.py:901"
+WIDE_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows_wide.cu"
+# no pallas_call: the JAX package runs W > 256 on its XLA engine
+WIDE_REPLACES = "scrooge_tpu/ops/engine_xla.py:105"
 LAB_SOURCE = "scrooge_tpu_torch/csrc/genasm_fill_lab.cu"
 LAB_REPLACES = "tools/kernel_lab.py:107"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -313,7 +332,8 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     from scrooge_tpu_torch.cigar import is_valid_cigar
     from scrooge_tpu_torch.ops import _cuda
 
-    window_kernels = (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS)
+    window_kernels = (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS,
+                      _cuda.GENASM_WINDOWS_WIDE)
     for k in window_kernels:
         k.counts.clear()
     torch.cuda.synchronize()
@@ -658,6 +678,84 @@ def file_path(ds, main_strs, small, dev, tmp):
                              "align_reads on the card")
 
 
+def wide_windows(ds, prepared, dev, ops_rate, tmp):
+    """Phase 10 (see the docstring): returns the kernels-line entry of the
+    wide kernel."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch.ops import _cuda, engine
+    from scrooge_tpu_torch.profiling import kernel_time, sweep
+    from scrooge_tpu_torch.utils.simulate import SimulatedDataset
+
+    wide = _cuda.GENASM_WINDOWS_WIDE
+    for (W, K, O), B in (((257, 257, 129), 256), ((320, 320, 161), 256),
+                         ((512, 512, 257), 256), ((512, 512, 0), 256),
+                         ((1024, 1024, 513), 64), ((2048, 2048, 1025), 64)):
+        cfg = st.AlignConfig(W=W, K=K, O=O)
+        maxw, args = random_pairs(cfg, W + O, dev, B=B, length=2000)
+        compare(cfg, maxw, args, f"{B}x2kbp")
+    cfg = st.AlignConfig(W=512, K=64, O=257)
+    maxw, args = unrelated_pairs(cfg, 164, dev, B=256)
+    want = compare(cfg, maxw, args, "256x1kbp-unrelated")["plain"]
+    if int((want.failed & engine.FAIL_TB != 0).sum().item()) == 0:
+        raise AssertionError("unrelated pairs at W=512 K=64: no FAIL_TB lane")
+
+    # one tile split by a small scratch budget against one launch
+    cfg = st.AlignConfig(W=512, K=512, O=257)
+    maxw, args = random_pairs(cfg, 5, dev, B=256, length=2000)
+    one = engine.align_windows(cfg, maxw, *args)
+    budget = 8 * sum(engine.scratch_words(cfg, 64))  # 64 pairs a launch
+    chunks = engine.launch_chunks(cfg, 256, budget)
+    before = wide.counts[8]
+    split = engine._align_windows_cuda(cfg, maxw, *args, budget_bytes=budget)
+    torch.cuda.synchronize()
+    err = max_abs_diff(one, split)
+    phase("wide-split", W=cfg.W, B=256, budget_bytes=budget,
+          launches=wide.counts[8] - before, chunks=len(chunks),
+          max_abs_err=err, tolerance=0)
+    if err != 0 or wide.counts[8] - before != len(chunks) or len(chunks) < 2:
+        raise AssertionError("a split tile differs from one launch")
+
+    # the slice's path: align_reads at W=512 on 1024 bench reads
+    cfg = st.AlignConfig(W=512, K=512, O=257, batch_tile=1024)
+    sub = SimulatedDataset(genome=ds.genome, reads=ds.reads[:1024])
+    staged = kernel_time.stage_mapped(prepared, sub.reads, cfg, dev)
+    tile = compare(cfg, staged[1], staged[2], "w512 path tile")
+    counts, _ = drive_path("w512-path", cfg, sub, prepared, dev, 4, 128)
+    launches = counts[wide].get(8, 0)
+    if launches < 1 or any(counts[k] for k in counts if k is not wide):
+        raise AssertionError(f"the W=512 path's launches: {counts}")
+    kernel_only("w512-kernel-only", staged, len(sub.reads))
+    bound_ms, bound_by, detail = window_bound(cfg, staged[1], staged[2],
+                                              tile["plain"], ops_rate)
+    phase("bound", kernel="genasm_windows_wide[NW=8]", W=cfg.W,
+          bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, **detail)
+
+    # the sweep entry point on the card
+    out = os.path.join(tmp, "sweep")
+    t0 = time.perf_counter()
+    rc = sweep.main(["device", "simulated:1024:10000", "--families", "WO",
+                     "--max_W", "512", "--max_experiments", "2",
+                     "--profile_dir", out])
+    with open(os.path.join(out, "simulated_1024_10000_device_sweep_WO.csv")
+              ) as f:
+        rows = list(csv.DictReader(f))
+    phase("sweep", rc=rc, seconds=f"{time.perf_counter() - t0:.2f}",
+          rows=repr([(r["W"], r["early termination"], r["batch"],
+                      r["aligns/second"], r["engine"]) for r in rows]))
+    want = {("256", "genasm_windows"), ("512", "genasm_windows_wide")}
+    got = {(r["W"], r["early termination"], r["engine"]) for r in rows
+           if float(r["aligns/second"]) > 0}
+    if rc != 0 or got != {(w, et, e) for w, e in want
+                          for et in ("False", "True")}:
+        raise AssertionError(f"sweep rows: {rows}")
+    return {"name": "genasm_windows_wide[NW=8]", "route": "cuda",
+            "source": WIDE_SOURCE, "replaces": WIDE_REPLACES,
+            "launches": launches, "max_abs_err": tile["max_abs_err"],
+            "ms": tile["ms"], "plain_ms": tile["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": f"W=512 K=512 O=257 B={staged[3]}"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -788,6 +886,10 @@ def main() -> int:
     # ---- 9. file path ----
     with tempfile.TemporaryDirectory(prefix="scrooge_file_path_") as tmp:
         file_path(ds, main_strs, small, dev, tmp)
+
+    # ---- 10. windows wider than 256 ----
+    with tempfile.TemporaryDirectory(prefix="scrooge_wide_") as tmp:
+        kernels.append(wide_windows(ds, prepared, dev, ops_rate, tmp))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

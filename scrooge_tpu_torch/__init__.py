@@ -3,11 +3,12 @@
 The port of ``scrooge_tpu`` (JAX/Pallas on a TPU) to an NVIDIA H100: the
 same two interfaces, its own copies of the configuration, data model,
 scalar oracle and native host helpers, and the same results bit for bit
-for W <= 256. The window engine is a hand-written CUDA kernel for sm_90a
+for W <= 2048. The window engine is a hand-written CUDA kernel for sm_90a
 (``csrc/genasm_windows1.cu`` for one-word bitvectors,
-``csrc/genasm_windows.cu`` for two to four words) beside a plain torch
-version that CPU tensors run. This package imports ``torch``, never ``jax`` and nothing of
-``scrooge_tpu``.
+``csrc/genasm_windows.cu`` for two to four words,
+``csrc/genasm_windows_wide.cu`` for five to 32) beside a plain torch
+version that CPU tensors run. This package imports ``torch``, never ``jax``
+and nothing of ``scrooge_tpu``.
 """
 
 from .api import (AlignmentError, PreparedGenome, align_all, align_pairs,

@@ -221,7 +221,8 @@ def _check_backend(cfg: AlignConfig) -> None:
     if cfg.backend not in ("auto", "pyref"):
         raise ValueError(
             f"backend={cfg.backend!r}: 'pallas' and 'xla' are engines of the "
-            "JAX package; the torch port takes 'auto' or 'pyref'")
+            "JAX package; the torch port takes 'auto' or 'pyref', and its "
+            f"kernels cover every W the xla engine took (W <= {engine.MAX_W})")
 
 
 def _bucket_lin(n: int, step: int) -> int:

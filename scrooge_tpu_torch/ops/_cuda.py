@@ -114,6 +114,19 @@ GENASM_WINDOWS1 = CudaKernel(
      _P, _P, _P, _P,      # ed, failed, entries, counts
      _P])                 # cudaStream_t
 
+# the counterpart of engine_xla._window_step / _align_scan, which the JAX
+# package runs for W > 256: five to 32 words, a group of G threads a
+# pair; keyed by NW = ceil(W/64) in 5..32 (the entry point refuses fewer)
+GENASM_WINDOWS_WIDE = CudaKernel(
+    "genasm_windows_wide.cu", "genasm_windows_wide_launch",
+    [_P, _I64,            # text words, their count
+     _P, _P,              # text base chars, text len
+     _P, _I64, _P,        # pattern words, words per pattern row, pattern len
+     _I, _I, _I, _I, _I,  # B, W, K, O, max_windows
+     _P, _P,              # R scratch, forefront scratch
+     _P, _P, _P, _P,      # ed, failed, entries, counts
+     _P])                 # cudaStream_t
+
 # replaces tools/kernel_lab.py:run (fill_kernel); keyed by the variant,
 # 0 full, 1 nostore, 2 noff. A group of threads a lane; no forefront
 # scratch.
@@ -124,7 +137,8 @@ GENASM_FILL_LAB = CudaKernel(
      _P, _P,              # wed, per-lane sum over windows
      _P])                 # cudaStream_t
 
-KERNELS = (GENASM_WINDOWS1, GENASM_WINDOWS, GENASM_FILL_LAB)
+KERNELS = (GENASM_WINDOWS1, GENASM_WINDOWS, GENASM_WINDOWS_WIDE,
+           GENASM_FILL_LAB)
 
 
 def build_all(kernels=KERNELS):

@@ -13,9 +13,13 @@ Port of the JAX package's window engines:
   from the packed words, fill two rows a pass and run the TPU kernel's
   level traceback. The choice follows the config alone.
 - ``engine_xla._window_step`` / ``_align_scan`` / ``align_batch[_mapped]``
-  (scrooge_tpu/ops/engine_xla.py:105-443). ``align_windows_plain`` below is
-  their lane-batched lockstep counterpart in torch ops. The CPU path and
-  the tests use it, and on the card it is what the kernel is held against.
+  (scrooge_tpu/ops/engine_xla.py:105-443), which the JAX package runs for
+  every W its Pallas kernel cannot hold (W > 256). On the card that is
+  ``csrc/genasm_windows_wide.cu``: five to 32 words (W = 257..2048), a
+  group of G threads a pair, thread t holding word t of every bitvector.
+  ``align_windows_plain`` below is their lane-batched lockstep counterpart
+  in torch ops. The CPU path and the tests use it, and on the card it is
+  what every kernel is held against.
 
 Output layout is engine_xla's dense one: ``entries`` (MAXW, NE, B) with
 NE = 2*tb_limit + 2 rows, each window's runs in a dense prefix of its rows,
@@ -30,7 +34,7 @@ Semantics that differ from the JAX engines, and why no output changes:
 - early termination is always on: the rows after the first hit are never
   read by the traceback.
 
-Bitvectors are NW = ceil(W/64) 64-bit words, word 0 the lowest, W <= 256.
+Bitvectors are NW = ceil(W/64) 64-bit words, word 0 the lowest, W <= 2048.
 The plain version keeps them LSB-aligned as in the scalar oracle
 (pyref.py; the multiword kernel aligns them to the top bit, as the TPU
 kernel does, which changes no output): pattern position j is bit
@@ -64,8 +68,15 @@ FAIL_TB = 1          # no window alignment within K edits
 FAIL_STALL = 2       # a window consumed no text and no pattern
 FAIL_INCOMPLETE = 8  # the read was not consumed within max_windows
 
-MAX_W = 256
+# a run is stored as op << 12 | count, and its count (at most 2*tb_limit
+# a window) must stay below 2^12 (engine_xla.py:48-49): W <= 2048
+MAX_W = 2048
 WORD = 64
+# words per bitvector of the kernels: genasm_windows1.cu one,
+# genasm_windows.cu up to four, genasm_windows_wide.cu the rest
+MULTIWORD_MAX_NW = 4
+# share of the card's free memory a call's R and forefront scratch may take
+SCRATCH_SHARE = 0.75
 
 
 class BatchResult(NamedTuple):
@@ -83,9 +94,9 @@ class BatchResult(NamedTuple):
 def check_config(cfg: AlignConfig) -> None:
     if cfg.W > MAX_W:
         raise NotImplementedError(
-            f"W={cfg.W}: the torch port holds a window in at most four "
-            "64-bit words (W <= 256); W > 256 waits for the full-K engine, "
-            "ROADMAP.md queue 1 item 8")
+            f"W={cfg.W}: a window's runs are stored as op << 12 | count, "
+            f"whose 12-bit run count bounds W to {MAX_W} "
+            "(engine_xla.py:48-49)")
 
 
 def num_words(W: int) -> int:
@@ -171,33 +182,87 @@ def _check_inputs(text_words, text_base, text_len, pattern_words,
 
 def window_kernel(cfg: AlignConfig):
     """The CUDA kernel the config launches: genasm_windows1.cu for one
-    word (W <= 64), genasm_windows.cu for two to four."""
-    return (_cuda.GENASM_WINDOWS1 if num_words(cfg.W) == 1
-            else _cuda.GENASM_WINDOWS)
+    word (W <= 64), genasm_windows.cu for two to four, and
+    genasm_windows_wide.cu for five to 32 (W = 257..2048)."""
+    nw = num_words(cfg.W)
+    if nw == 1:
+        return _cuda.GENASM_WINDOWS1
+    if nw <= MULTIWORD_MAX_NW:
+        return _cuda.GENASM_WINDOWS
+    return _cuda.GENASM_WINDOWS_WIDE
+
+
+def group_size(W: int) -> int:
+    """Threads a pair of genasm_windows_wide.cu: the power of two >= NW,
+    at least 8 (8, 16 or 32)."""
+    return max(8, 1 << (num_words(W) - 1).bit_length())
+
+
+def pairs_per_warp(cfg: AlignConfig) -> int:
+    """Pairs a warp of the config's kernel runs: 32 at one thread a pair,
+    32 / G for the wide kernel. A launch's lanes come in these units."""
+    return (32 if num_words(cfg.W) <= MULTIWORD_MAX_NW
+            else 32 // group_size(cfg.W))
 
 
 def scratch_words(cfg: AlignConfig, B: int):
-    """int64 words of the kernel's R and forefront scratch for B lanes.
+    """int64 words of the kernel's (R, forefront) scratch for B lanes.
 
-    R: rows d <= K+1 (the row pair at d = K computes row K+1), columns
-    i < W-O+1 (DENT), in blocks of 32 lanes. The one-word kernel stores
-    one word a column and keeps its forefront in registers (no scratch).
-    The multiword kernel stores only the MSB-aligned words that hold bits
-    [O-1, W), which the traceback reads: NW - max(O-1, 0) // 64 of them;
-    its forefront holds W+17 columns of NW words (genasm_windows.cu
-    ff_cols: 0..W and the top fill batch's columns above W).
+    R: columns i < W-O+1 (DENT). The one-word kernel stores one word a
+    column and keeps its forefront in registers (no scratch). The
+    multiword kernels store only the MSB-aligned words that hold bits
+    [O-1, W), which the traceback reads: NW - max(O-1, 0) // 64 of them.
+    genasm_windows.cu keeps rows d <= K+1 (the row pair at d = K computes
+    row K+1) in blocks of 32 lanes, and a forefront of W+17 columns of NW
+    words (ff_cols: 0..W and the top fill batch's columns above W).
+    genasm_windows_wide.cu fills one row a pass: rows d <= K, and a
+    forefront of the W+1 columns, each pair's own.
     """
-    nw, lanes = num_words(cfg.W), -(-B // 32) * 32
+    nw = num_words(cfg.W)
     if nw == 1:
-        return (cfg.K + 2) * cfg.columns * lanes, 0
+        return (cfg.K + 2) * cfg.columns * (-(-B // 32) * 32), 0
     stored = nw - max(cfg.O - 1, 0) // WORD
-    return ((cfg.K + 2) * stored * cfg.columns * lanes,
-            (cfg.W + 17) * nw * lanes)
+    if nw <= MULTIWORD_MAX_NW:
+        lanes = -(-B // 32) * 32
+        return ((cfg.K + 2) * stored * cfg.columns * lanes,
+                (cfg.W + 17) * nw * lanes)
+    return (cfg.K + 1) * stored * cfg.columns * B, (cfg.W + 1) * nw * B
+
+
+def launch_chunks(cfg: AlignConfig, B: int, budget_bytes: int):
+    """Lane ranges [lo, hi) that split B lanes into launches whose scratch
+    (scratch_words) takes at most ``budget_bytes`` each: as few launches
+    as the budget allows, every one but the last a whole number of warps.
+    Raises MemoryError when not even one warp's pairs fit."""
+    unit = pairs_per_warp(cfg)
+    per_unit = 8 * sum(scratch_words(cfg, unit))
+    units = int(budget_bytes) // per_unit
+    if units < 1:
+        raise MemoryError(
+            f"W={cfg.W} K={cfg.K} O={cfg.O}: one warp's {unit} pairs need "
+            f"{per_unit} bytes of R and forefront scratch, more than the "
+            f"{int(budget_bytes)} bytes available")
+    step = units * unit
+    return [(lo, min(lo + step, B)) for lo in range(0, B, step)]
+
+
+def free_bytes(dev) -> int:
+    """Bytes of the card's memory torch could hand out now: the free
+    memory cudaMemGetInfo reports and what torch's caching allocator
+    holds unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    return free + (torch.cuda.memory_reserved(dev)
+                   - torch.cuda.memory_allocated(dev))
 
 
 def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
-                        pattern_words, pattern_len) -> BatchResult:
-    """Kernel wrapper: allocates outputs and scratch, launches once."""
+                        pattern_words, pattern_len,
+                        budget_bytes: Optional[int] = None) -> BatchResult:
+    """Kernel wrapper: allocates outputs, then launches once for each lane
+    range of launch_chunks, with that range's scratch; ``budget_bytes``
+    (default SCRATCH_SHARE of free_bytes) bounds one launch's scratch. A range after
+    the first writes its runs to its own buffers, which are copied into
+    place; the split changes no output."""
     _check_inputs(text_words, text_base, text_len, pattern_words,
                   pattern_len)
     kernel = window_kernel(cfg)
@@ -209,21 +274,35 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
     entries = torch.zeros((max_windows, NE, B), dtype=torch.int16,
                           device=dev)
     counts = torch.empty((max_windows, B), dtype=torch.int32, device=dev)
-    r_words, ff_words = scratch_words(cfg, B)
-    R = torch.empty(r_words, dtype=torch.int64, device=dev)
-    scratch = (R.data_ptr(),)
-    if ff_words:
-        ff = torch.empty(ff_words, dtype=torch.int64, device=dev)
-        scratch += (ff.data_ptr(),)
-    with torch.cuda.device(dev):
-        kernel.launch(num_words(cfg.W), text_words.data_ptr(),
-                      text_words.numel(), text_base.data_ptr(),
-                      text_len.data_ptr(), pattern_words.data_ptr(),
-                      int(pattern_words.shape[1]), pattern_len.data_ptr(),
-                      B, cfg.W, cfg.K, cfg.O, int(max_windows), *scratch,
-                      ed.data_ptr(), failed.data_ptr(), entries.data_ptr(),
-                      counts.data_ptr(),
-                      torch.cuda.current_stream(dev).cuda_stream)
+    if budget_bytes is None:
+        budget_bytes = int(SCRATCH_SHARE * free_bytes(dev))
+    chunks = launch_chunks(cfg, B, budget_bytes) if B else []
+    for lo, hi in chunks:
+        whole = (lo, hi) == (0, B)
+        ent = entries if whole else torch.zeros(
+            (max_windows, NE, hi - lo), dtype=torch.int16, device=dev)
+        cnt = counts if whole else torch.empty(
+            (max_windows, hi - lo), dtype=torch.int32, device=dev)
+        scratch = [torch.empty(n, dtype=torch.int64, device=dev)
+                   for n in scratch_words(cfg, hi - lo) if n]
+        with torch.cuda.device(dev):
+            kernel.launch(num_words(cfg.W), text_words.data_ptr(),
+                          text_words.numel(), text_base[lo:].data_ptr(),
+                          text_len[lo:].data_ptr(),
+                          pattern_words[lo:].data_ptr(),
+                          int(pattern_words.shape[1]),
+                          pattern_len[lo:].data_ptr(), hi - lo, cfg.W,
+                          cfg.K, cfg.O, int(max_windows),
+                          *(t.data_ptr() for t in scratch),
+                          ed[lo:].data_ptr(), failed[lo:].data_ptr(),
+                          ent.data_ptr(), cnt.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream)
+        # back to torch's allocator before the next range takes its own:
+        # it reuses the memory only for work queued after this launch
+        del scratch
+        if not whole:
+            entries[:, :, lo:hi] = ent
+            counts[:, lo:hi] = cnt
     return BatchResult(ed, failed, entries, counts)
 
 
@@ -245,6 +324,40 @@ class _Words:
         if self.nw > 1:
             out[..., 1:, :] |= (v[..., :-1, :] >> (WORD - 1)) & 1
         return out & self.full
+
+    def shl(self, v: torch.Tensor, k: int) -> torch.Tensor:
+        """v << k across the words (k >= 1), not masked: bits shifted past
+        W are left to the caller, whose operands mask them."""
+        q, r = divmod(k, WORD)
+        out = torch.zeros_like(v)
+        if q >= self.nw:
+            return out
+        lo = v[..., : self.nw - q, :]
+        if r == 0:
+            out[..., q:, :] = lo
+            return out
+        out[..., q:, :] = lo << r
+        # the top r bits of the word below, as the low r bits
+        out[..., q + 1:, :] |= (lo[..., :-1, :] >> (WORD - r)) & ((1 << r) - 1)
+        return out
+
+    def scan_row(self, A: torch.Tensor, Bv: torch.Tensor) -> torch.Tensor:
+        """Every column of one DP row from its column maps.
+
+        Column i of a row is f_i(column i+1) with f_i(r) = ((r << 1) &
+        A[i]) | Bv[i], A and Bv (W+1, NW, B) and A[W] = 0, so column i is
+        Bv of f_i o f_i+1 o ... o f_W. A composition of k such maps is
+        r -> ((r << k) & A') | Bv' again, so log2(W+1) doubling steps
+        compose every suffix at once (a Hillis-Steele scan): step k
+        composes each i with i+k. Returns the columns (W+1, NW, B)."""
+        k, n = 1, A.shape[0]
+        while k < n:
+            outer = A[:-k]
+            A = torch.cat([self.shl(A[k:], k) & outer, A[-k:]])
+            Bv = torch.cat([(self.shl(Bv[k:], k) & outer) | Bv[:-k],
+                            Bv[-k:]])
+            k *= 2
+        return Bv
 
     @staticmethod
     def bit(v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -322,7 +435,8 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
         # (W, NW, B): PM[text[i]]
         pmi = pm.gather(1, tch[:, :, None].expand(B, W, NW)).permute(
             1, 2, 0).contiguous()
-        is_start = col[:, None] >= n[None, :]   # (W+1, B): column i >= n
+        # (W+1, 1, B): column i >= n
+        is_start = (col[:, None] >= n[None, :])[:, None, :]
 
         # ---- DP fill (pyref.genasm_dc) ----
         found = ~act
@@ -330,26 +444,25 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
         rows = []  # R[d]: the stored DENT columns of row d, (COLS, NW, B)
         probe = (m - 1).clamp(min=0)
         ff = None
+        zero = torch.zeros_like(pmi[:1])
         for d in range(K + 1):
-            # start column i == n: ones at d == 0, ones << d after
+            # start columns i >= n: ones at d == 0, ones << d after; a
+            # start column's map is the constant, A = 0
             start = bv.const(ones_shifted(W, d)).expand(NW, B)
-            right = start
-            cols = [right]
-            if d == 0:
-                for i in range(W - 1, -1, -1):
-                    mat = bv.shl1(right) | pmi[i]
-                    right = torch.where(is_start[i], start, mat)
-                    cols.append(right)
+            if d == 0:  # (shl1(right) | PM[text[i]])
+                A = bv.full.expand(W, NW, B)
+                Bv = pmi
             else:
                 # sub & ins & del for every column at once, from row d-1:
-                # (R[d-1][i+1] << 1) & (R[d-1][i] << 1) & R[d-1][i+1]
+                # (R[d-1][i+1] << 1) & (R[d-1][i] << 1) & R[d-1][i+1];
+                # (shl1(right) | PM[text[i]]) & x
                 ins = bv.shl1(ff)
-                x = ins[1:] & ins[:-1] & ff[1:]
-                for i in range(W - 1, -1, -1):
-                    c = (bv.shl1(right) | pmi[i]) & x[i]
-                    right = torch.where(is_start[i], start, c)
-                    cols.append(right)
-            ff = torch.stack(cols[::-1])  # (W+1, NW, B), column-major
+                A = ins[1:] & ins[:-1] & ff[1:]
+                Bv = pmi & A
+            A = torch.where(is_start, 0, torch.cat([A, zero]))
+            Bv = torch.where(is_start, start, torch.cat([Bv, zero]))
+            ff = bv.scan_row(A, Bv)  # (W+1, NW, B), column-major
+            right = ff[0]
             rows.append(ff[:COLS])
             searching = ~found
             work[0] += torch.where(searching, n + 1, 0)

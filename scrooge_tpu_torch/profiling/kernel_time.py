@@ -2,8 +2,9 @@
 
 Port of scrooge_tpu/profiling/kernel_time.py:22-94: stage one read-mapping
 batch on the device once, then time only engine launches with CUDA
-events, N launches per sample and one synchronise. There is no CPU
-fallback: a device time needs a device.
+events, N launches per sample and one synchronise; ``kernel_rate_samples``
+gives the samples as aligns/second, as the sweeps record them. There is
+no CPU fallback: a device time needs a device.
 """
 
 from __future__ import annotations
@@ -59,3 +60,11 @@ def engine_ms(staged, reps: int = 3, groups: int = 3):
         t1.synchronize()
         samples.append(t0.elapsed_time(t1) / reps)
     return samples
+
+
+def kernel_rate_samples(staged, reps: int = 4, groups: int = 3):
+    """Engine-only aligns/second of each of ``groups`` samples of ``reps``
+    calls (engine_ms), for callers that record min/median/max
+    (scrooge_tpu/profiling/kernel_time.py:62)."""
+    n = staged[3]
+    return [n * 1e3 / ms for ms in engine_ms(staged, reps, groups)]

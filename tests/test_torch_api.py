@@ -30,6 +30,7 @@ from scrooge_tpu.utils import simulate as jax_simulate  # noqa: E402
 from scrooge_tpu_torch import (AlignConfig, AlignmentError,  # noqa: E402
                                CandidateLocation, Genome, Read)
 from scrooge_tpu_torch.utils import simulate as port_simulate  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 CORPUS = os.path.join(os.path.dirname(__file__), "data",
                       "parity_corpus.tsv.gz")
@@ -188,9 +189,9 @@ def test_failed_lanes_are_retried_on_pyref(monkeypatch, packed):
 
 
 def test_unsupported_configs_and_backends():
-    with pytest.raises(NotImplementedError, match="W > 256"):
-        st.align_pairs(["ACGT"], ["ACGT"], AlignConfig(W=320, K=320, O=161),
-                       device=CPU)
+    with pytest.raises(NotImplementedError, match="12-bit run count"):
+        st.align_pairs(["ACGT"], ["ACGT"],
+                       AlignConfig(W=2049, K=2049, O=1025), device=CPU)
     for backend in ("pallas", "xla"):
         with pytest.raises(ValueError):
             st.align_pairs(["ACGT"], ["ACGT"], AlignConfig(backend=backend),

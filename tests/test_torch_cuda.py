@@ -49,7 +49,9 @@ def _same(a, b):
 
 @pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33), (16, 16, 9),
                                  (64, 64, 2), (96, 96, 49), (128, 128, 65),
-                                 (192, 192, 97), (256, 256, 129)])
+                                 (192, 192, 97), (256, 256, 129),
+                                 (257, 257, 129), (320, 320, 161),
+                                 (512, 512, 0), (1024, 1024, 513)])
 def test_kernel_matches_plain(cuda, wko):
     W, K, O = wko
     cfg = st.AlignConfig(W=W, K=K, O=O)
@@ -171,13 +173,56 @@ def test_multiword_kernel_matches_plain_on_edge_pairs(cuda, wko):
 @pytest.mark.parametrize("nw, W", [(1, 64), (5, 320), (4, 320), (2, 64)])
 def test_multiword_kernel_refuses_one_word_and_wide_windows(cuda, nw, W):
     """genasm_windows_launch takes NW = ceil(W/64) in 2..4 only: one word
-    belongs to genasm_windows1.cu and W > 256 to no kernel. A refused
+    belongs to genasm_windows1.cu and W > 256 to genasm_windows_wide.cu. A refused
     launch raises and counts nothing; the entry point returns -1 before
     it reads any pointer."""
     kern = _cuda.GENASM_WINDOWS
     before = dict(kern.counts)
     with pytest.raises(RuntimeError, match="arguments refused"):
         # null pointers, B=2, K=W, O=W/2+1, 4 windows
+        kern.launch(nw, None, 4, None, None, None, 4, None, 2, W, W,
+                    W // 2 + 1, 4, None, None, None, None, None, None,
+                    None)
+    assert dict(kern.counts) == before
+
+
+@pytest.mark.parametrize("wko", [(512, 512, 257), (2048, 2048, 1025)])
+def test_wide_kernel_split_launches_match_one(cuda, wko):
+    """A tile split into five launches by a small scratch budget (a
+    part-filled last warp among them at W=512) gives the one launch's
+    outputs; W=2048 (G = 32) takes 269 MB of R a pair, so a tile of a few
+    hundred pairs splits by itself."""
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O)
+    text, tlen, pattern, plen = _batch(9, 50, 900, 800)
+    tw = pack.pack_2bit(torch.from_numpy(text)).to(cuda)
+    base = torch.arange(50, dtype=torch.int64, device=cuda) * (
+        tw.shape[1] * 16)
+    args = (tw, base, torch.from_numpy(tlen).to(cuda),
+            pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
+            torch.from_numpy(plen).to(cuda))
+    maxw = cfg.max_windows(800)
+    one = engine.align_windows(cfg, maxw, *args)
+    budget = 8 * sum(engine.scratch_words(cfg, 12))
+    assert len(engine.launch_chunks(cfg, 50, budget)) == 5
+    kern, nw = _cuda.GENASM_WINDOWS_WIDE, engine.num_words(W)
+    before = kern.counts[nw]
+    split = engine._align_windows_cuda(cfg, maxw, *args, budget_bytes=budget)
+    assert kern.counts[nw] == before + 5
+    torch.cuda.synchronize()
+    _same(split, one)
+    with pytest.raises(MemoryError):
+        engine._align_windows_cuda(cfg, maxw, *args, budget_bytes=1024)
+
+
+@pytest.mark.parametrize("nw, W", [(4, 256), (1, 64), (33, 2100),
+                                   (6, 320)])
+def test_wide_kernel_refuses_other_word_counts(cuda, nw, W):
+    """genasm_windows_wide_launch takes NW = ceil(W/64) in 5..32 only and
+    returns -1 before it reads any pointer; nothing is counted."""
+    kern = _cuda.GENASM_WINDOWS_WIDE
+    before = dict(kern.counts)
+    with pytest.raises(RuntimeError, match="arguments refused"):
         kern.launch(nw, None, 4, None, None, None, 4, None, 2, W, W,
                     W // 2 + 1, 4, None, None, None, None, None, None,
                     None)

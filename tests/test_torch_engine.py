@@ -17,6 +17,7 @@ from scrooge_tpu.ops import engine_pallas, engine_xla  # noqa: E402
 from scrooge_tpu_torch.ops import compact, engine, pack  # noqa: E402
 from scrooge_tpu_torch.utils.simulate import (  # noqa: E402
     edge_pairs, multiword_edge_batch)
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 def _mutate(rng, seq, rate):
@@ -174,18 +175,20 @@ def test_plain_engine_matches_xla_engine_on_multiword_edge_pairs(wko):
     _assert_same(rx, rt)
 
 
-@pytest.mark.parametrize("W", [16, 64, 65, 256])
+@pytest.mark.parametrize("W", [16, 64, 65, 256, 257, 2048])
 def test_window_kernel_follows_word_count(W):
     """The config alone picks the CUDA kernel: genasm_windows1.cu for one
-    word, genasm_windows.cu for more; CPU tensors take the plain version
-    and launch neither."""
+    word, genasm_windows.cu for two to four, genasm_windows_wide.cu for
+    more; CPU tensors take the plain version and launch none."""
     from scrooge_tpu_torch.ops import _cuda
 
     cfg = AlignConfig(W=W, K=W, O=W // 2 + 1)
-    want = _cuda.GENASM_WINDOWS1 if W <= 64 else _cuda.GENASM_WINDOWS
+    want = (_cuda.GENASM_WINDOWS1 if W <= 64 else _cuda.GENASM_WINDOWS
+            if W <= 256 else _cuda.GENASM_WINDOWS_WIDE)
     assert engine.window_kernel(cfg) is want
     before = [dict(k.counts) for k in (_cuda.GENASM_WINDOWS1,
-                                        _cuda.GENASM_WINDOWS)]
+                                        _cuda.GENASM_WINDOWS,
+                                        _cuda.GENASM_WINDOWS_WIDE)]
     words = torch.zeros((1, -(-W // 16)), dtype=torch.int32)
     args = (words, torch.zeros(1, dtype=torch.int64),
             torch.full((1,), W, dtype=torch.int32), words,
@@ -193,7 +196,8 @@ def test_window_kernel_follows_word_count(W):
     res = engine.align_windows(cfg, cfg.max_windows(W), *args)
     assert int(res.edit_distance[0]) == 0 and int(res.failed[0]) == 0
     assert [dict(k.counts) for k in (_cuda.GENASM_WINDOWS1,
-                                     _cuda.GENASM_WINDOWS)] == before
+                                     _cuda.GENASM_WINDOWS,
+                                     _cuda.GENASM_WINDOWS_WIDE)] == before
 
 
 @pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65),

@@ -20,6 +20,7 @@ import scrooge_tpu_torch as st
 from scrooge_tpu_torch import baselines, cigar, io, wfa
 from scrooge_tpu_torch.cli import baseline_cli, options, tests_cli
 from scrooge_tpu_torch.ops import _cuda, engine, pack
+from scrooge_tpu_torch.profiling import kernel_time, sweep
 from scrooge_tpu_torch.tools import (cigar_tools, convert, kernel_lab,
                                      window_lab)
 from scrooge_tpu_torch.utils.simulate import edge_pairs
@@ -50,6 +51,15 @@ res = engine.align_batch(cfg, cfg.max_windows(180),
                          pack.pack_2bit(torch.from_numpy(pattern)),
                          torch.from_numpy(plen))
 assert int((res.failed == engine.FAIL_TB).sum()) > 0
+wide = st.AlignConfig(W=320, K=320, O=161)
+assert engine.window_kernel(wide) is _cuda.GENASM_WINDOWS_WIDE
+a = st.align_pairs(["ACGTTGCA" * 60], ["ACGTTGCA" * 50], wide, device="cpu")
+assert a[0].edit_distance == 0, a
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    assert sweep.main(["device", "simulated:2:400", "--device=cpu",
+                       "--families=WO", "--max_W=320",
+                       "--max_experiments=1", f"--profile_dir={tmp}"]) == 0
 assert "matplotlib" not in sys.modules  # cigar_tools.inspect loads it
 assert tests_cli.main(["--unit_tests", "--device=cpu"]) == 0
 assert baseline_cli.main(["--simulated=2,150", "--threads=128",

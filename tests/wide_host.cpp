@@ -1,0 +1,149 @@
+// Host harness for the lane-group code of the wide window kernel,
+// scrooge_tpu_torch/csrc/genasm_windows_wide.cu, built by
+// tests/test_torch_wide_host.py with g++ under AddressSanitizer and UBSan
+// (g++ -I scrooge_tpu_torch/csrc).
+//
+// The shim below stands in for the card's warp primitives: a HostLanes
+// holds the value of each of the 32 threads of a warp (32/G pair groups
+// of G), the kernel's FOR_THREADS loops run its body for t = 0..31 in
+// turn, and shfl_up, shfl_from and warp_any read the whole array, so the
+// threads run in lockstep. The R and forefront scratch start filled with
+// a garbage pattern, and counts with -7, so that a read of a word the
+// kernel did not write, or a count it did not write, shows in the output.
+//
+// stdin: int32 W, K, O, max_windows, B; int64 text_words_n,
+// pattern_stride; then text_words (text_words_n uint32), text_base (B
+// int64), text_len (B int32), pattern_words (B * pattern_stride uint32),
+// pattern_len (B int32). stdout: ed (B int32), failed (B int32), entries
+// (max_windows * (2(W-O)+2) * B int16, lane-minor), counts (max_windows *
+// B int32).
+
+#include <cstdint>
+#include <cstdio>
+#include <vector>
+
+template <class T, int N>
+struct HostLanes {
+  T v[N];
+  T& operator[](int t) { return v[t]; }
+  const T& operator[](int t) const { return v[t]; }
+};
+
+struct HostWarp {
+  int t_lo, t_hi;  // every thread of the warp: [0, 32)
+};
+
+using U32Lanes = HostLanes<unsigned, 32>;
+
+// __shfl_up_sync(mask, x, 1, G): thread t gets thread t-1's x within its
+// group of G, the group's first thread its own
+template <int G>
+inline U32Lanes shfl_up(const HostWarp&, const U32Lanes& x) {
+  U32Lanes r;
+  for (int t = 0; t < 32; ++t) r[t] = x[t % G ? t - 1 : t];
+  return r;
+}
+
+// __shfl_sync(mask, x, src, G): thread src of the group's x
+template <int G>
+inline U32Lanes shfl_from(const HostWarp&, const U32Lanes& x, int src) {
+  U32Lanes r;
+  for (int t = 0; t < 32; ++t) r[t] = x[(t & ~(G - 1)) + src % G];
+  return r;
+}
+
+inline bool warp_any(const HostWarp&, const HostLanes<bool, 32>& p) {
+  for (int t = 0; t < 32; ++t)
+    if (p[t]) return true;
+  return false;
+}
+
+inline void warp_sync(const HostWarp&) {}
+inline uint32_t load_ro(const uint32_t* p) { return *p; }
+inline int first_set(unsigned x) { return __builtin_ffs((int)x); }
+
+inline uint64_t brev64(uint64_t x) {
+  uint64_t r = 0;
+  for (int k = 0; k < 64; ++k) r |= ((x >> k) & 1ull) << (63 - k);
+  return r;
+}
+
+inline uint32_t funnel_r(uint32_t lo, uint32_t hi, unsigned sh) {
+  return (uint32_t)(((((uint64_t)hi) << 32) | lo) >> (sh & 31u));
+}
+
+#include "genasm_windows_wide.cu"
+
+static_assert(WARP == 32, "the shim emulates 32-thread warps");
+
+namespace {
+
+template <class T>
+bool read_all(std::vector<T>& v) {
+  return std::fread(v.data(), sizeof(T), v.size(), stdin) == v.size();
+}
+
+template <class T>
+void write_all(const std::vector<T>& v) {
+  std::fwrite(v.data(), sizeof(T), v.size(), stdout);
+}
+
+// the kernel's warps, one after the other
+template <int G>
+void run(const Params& P) {
+  constexpr int PAIRS = WARP / G;
+  for (int first = 0; first < P.B; first += PAIRS) {
+    HostLanes<size_t, WARP> b;
+    HostLanes<bool, WARP> live;
+    for (int t = 0; t < WARP; ++t) {
+      const int pair = first + t / G;
+      b[t] = (size_t)(pair < P.B ? pair : P.B - 1);
+      live[t] = pair < P.B;
+    }
+    wide_warp<G>(HostWarp{0, WARP}, P, b, live);
+  }
+}
+
+}  // namespace
+
+int main() {
+  int32_t head[5];
+  int64_t head64[2];
+  if (std::fread(head, sizeof(int32_t), 5, stdin) != 5 ||
+      std::fread(head64, sizeof(int64_t), 2, stdin) != 2)
+    return 2;
+  const int W = head[0], K = head[1], O = head[2], maxw = head[3],
+            B = head[4];
+  const int64_t tw_n = head64[0], pstride = head64[1];
+  const int NW = (W + 63) / 64;
+  if (NW < MIN_NW || NW > MAX_NW || O < 0 || O >= W || K < 1 || maxw < 0 ||
+      B < 1 || tw_n < 1 || pstride < 1)
+    return 2;
+  std::vector<uint32_t> text_words(tw_n), pattern_words(B * pstride);
+  std::vector<int64_t> text_base(B);
+  std::vector<int32_t> text_len(B), pattern_len(B);
+  if (!read_all(text_words) || !read_all(text_base) || !read_all(text_len) ||
+      !read_all(pattern_words) || !read_all(pattern_len))
+    return 2;
+  const int COLS = W - O + 1, NE = 2 * (W - O) + 2;
+  const int NWS = NW - (O - 1 > 0 ? O - 1 : 0) / 64;
+  std::vector<uint64_t> R((size_t)(K + 1) * NWS * COLS * B,
+                          0x5a5aa5a55a5aa5a5ull);
+  std::vector<uint64_t> ff((size_t)(W + 1) * NW * B, 0xa5a55a5aa5a55a5aull);
+  std::vector<int32_t> ed(B), failed(B), counts((size_t)maxw * B, -7);
+  std::vector<int16_t> entries((size_t)maxw * NE * B, 0);
+  const Params P{text_words.data(), tw_n,          text_base.data(),
+                 text_len.data(),   pattern_words.data(), pstride,
+                 pattern_len.data(), B,            W,
+                 K,                 O,             maxw,
+                 R.data(),          ff.data(),     ed.data(),
+                 failed.data(),     entries.data(), counts.data()};
+  if (NW <= 8) run<8>(P);
+  else if (NW <= 16) run<16>(P);
+  else run<32>(P);
+  write_all(ed);
+  write_all(failed);
+  write_all(entries);
+  write_all(counts);
+  return 0;
+}

@@ -34,8 +34,10 @@ Phases, one line each:
      version at 2048 lanes, 2 windows, on the (m, n) cases of
      kernel_lab.MN_CASES (the lab's own inputs among them), and at 16384
      lanes, 1 window, on the lab's inputs (per-lane wed, the sum and, in full, the rows of
-     R both must store, identical), then the lab entry point's timing at
-     64 windows for 2048 and 16384 lanes, each beside its bound;
+     R both must store, identical), the plain version's time at 64
+     windows on the lab's inputs at both widths, then the lab entry
+     point's timing at 64 windows for 2048 and 16384 lanes, each beside
+     its bound;
   9. file path, the CLIs of scrooge_tpu_torch.cli on the card:
      tests_cli --unit_tests (the one-word kernel must launch); phase 4's
      bench dataset written to a temporary directory as reference.fasta,
@@ -65,7 +67,23 @@ Phases, one line each:
      card, ``device simulated:1024:10000 --families WO --max_W 512
      --max_experiments 2`` into a temporary directory, whose CSV must hold
      W = 256 and 512, each with and without ET, at a positive rate, with
-     the engine that ran.
+     the engine that ran;
+ 11. several devices (parallel/): the mesh path, align_reads on phase 4's
+     tile with device= every card, or ["cuda:0", "cuda:0"] on one card
+     (two shards of 8192 lanes on two streams), after one call on one
+     device for comparison, strings twice (the first call on new streams,
+     timed apart) then packed: all 16384 alignments
+     must equal phase 4's, the one-word kernel must launch once a shard a
+     call and the multiword ones never; each shard's kernel time alone
+     and the shards' together; then two real processes
+     (``python3 chip_smoke.py --dist-worker``, gloo, rank r on
+     cuda:(r mod device_count)) read phase 4's dataset from files and run
+     align_reads_distributed: each rank's gathered list must equal phase
+     4's strings; a worker that fails or outlives its limit fails the
+     run; then the scaling harness twice into a temporary directory, the
+     mesh (1 and 2 shards at 16384 pairs a shard, or 1..N cards) and
+     --distributed 2, whose CSVs must hold positive rates and card, cards
+     and processes columns that say what ran.
 
 Then the kernels' JSON line, the card line again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -99,6 +117,7 @@ WIDE_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows_wide.cu"
 WIDE_REPLACES = "scrooge_tpu/ops/engine_xla.py:105"
 LAB_SOURCE = "scrooge_tpu_torch/csrc/genasm_fill_lab.cu"
 LAB_REPLACES = "tools/kernel_lab.py:107"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 units
 TB_STEP_OPS = 12           # int32 ops per traceback step: 3 bit tests
@@ -461,10 +480,12 @@ def fill_lab(ops_rate):
                               tolerance=0)
                 if mn == lab_own:
                     timed_in.setdefault(B, (n, {}))[1][v] = want.wed
-                if mn == lab_own and B == 2048:
-                    _, checks[v][1] = timed(lab.run_plain, v, lab.NWIN, m,
-                                            n, pmi)
-                    fields["plain_ms"] = f"{checks[v][1]:.3f}"
+                if mn == lab_own:  # the timed inputs: plain's time too
+                    _, plain_ms = timed(lab.run_plain, v, lab.NWIN, m, n,
+                                        pmi)
+                    fields["plain_ms"] = f"{plain_ms:.3f}"
+                    if B == 2048:
+                        checks[v][1] = plain_ms
                 checks[v][0] = max(checks[v][0], err)
                 phase("fill-lab-vs-plain", **fields)
                 if err != 0:
@@ -756,6 +777,260 @@ def wide_windows(ds, prepared, dev, ops_rate, tmp):
             "shape": f"W=512 K=512 O=257 B={staged[3]}"}
 
 
+def mesh_path(ds, prepared, main_strs, cfg):
+    """Phase 11, part 1: align_reads on a mesh (see the docstring)."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch.ops import _cuda, engine
+    from scrooge_tpu_torch.parallel import mesh as M
+    from scrooge_tpu_torch.profiling import kernel_time
+
+    ncards = torch.cuda.device_count()
+    mesh = M.make_mesh(devices=[f"cuda:{i}" for i in range(ncards)]
+                       if ncards >= 2 else ["cuda:0", "cuda:0"])
+    one, others = _cuda.GENASM_WINDOWS1, (_cuda.GENASM_WINDOWS,
+                                          _cuda.GENASM_WINDOWS_WIDE)
+    # one device in this process's state, beside the mesh
+    t0 = time.perf_counter()
+    st.align_reads(prepared, ds.reads, cfg, device=mesh[0])
+    one_wall = time.perf_counter() - t0
+    for k in _cuda.KERNELS:
+        k.counts.clear()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):  # the first call on new streams, then again
+        t0 = time.perf_counter()
+        strs, stats = st.align_reads(prepared, ds.reads, cfg,
+                                     return_stats=True, device=mesh)
+        walls.append(time.perf_counter() - t0)
+    wall = walls[-1]
+    strs_launches = one.counts[1]
+    t0 = time.perf_counter()
+    packed, pstats = st.align_reads(prepared, ds.reads, cfg,
+                                    return_stats=True, return_packed=True,
+                                    device=mesh)
+    pwall = time.perf_counter() - t0
+    counts = {k.source: dict(k.counts) for k in (one, *others)}
+    bad = sum((a.edit_distance, a.cigar) != (b.edit_distance, b.cigar)
+              for a, b in zip(strs, main_strs))
+    agree = ([a.cigar for a in strs] == packed_cigars(packed)
+             and np.array_equal(np.array([a.edit_distance for a in strs]),
+                                packed.edit_distances))
+
+    # each shard's kernel alone, then the shards together on their streams
+    lanes = M.shard_lanes(len(ds.reads), len(mesh))
+    staged = [kernel_time.stage_mapped(
+        prepared, [ds.reads[i] for i in lk], cfg, dev)
+        for lk, dev in zip(lanes, mesh)]
+    alone = [min(kernel_time.engine_ms(x, reps=3, groups=3)) for x in staged]
+
+    budgets = M.scratch_budgets(mesh)
+
+    def both():
+        M.run_sharded(mesh, lambda k, dev: engine.align_windows(
+            cfg, staged[k][1], *staged[k][2], budget_bytes=budgets[k]))
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+
+    both()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        both()
+    together = (time.perf_counter() - t0) / 3 * 1e3
+    phase("mesh-path", cards=len(set(mesh)), shards=len(mesh),
+          mesh=repr([str(d) for d in mesh]), pairs=len(strs),
+          equal_to_main_path=len(strs) - bad, packed_agrees=agree,
+          launches=json.dumps(counts), retried_pairs=stats.retried_pairs,
+          one_device_wall_s=f"{one_wall:.3f}",
+          first_wall_s=f"{walls[0]:.3f}", wall_s=f"{wall:.3f}",
+          aligns_per_s=f"{len(strs) / wall:.1f}",
+          packed_wall_s=f"{pwall:.3f}",
+          packed_aligns_per_s=f"{len(strs) / pwall:.1f}",
+          summed_stages=repr(stats.breakdown()),
+          packed_summed_stages=repr(pstats.breakdown()),
+          shard_kernel_ms=" ".join(f"{x:.3f}" for x in alone),
+          shards_together_ms=f"{together:.3f}")
+    if bad or len(strs) != len(main_strs) or not agree:
+        raise AssertionError(f"mesh path: {bad} alignments differ from the "
+                             f"main path's; strings and packed agree: "
+                             f"{agree}")
+    if (strs_launches < 2 * len(mesh) or counts[one.source].get(1, 0)
+            < 3 * len(mesh) or any(counts[k.source] for k in others)):
+        raise AssertionError(f"mesh path launches: {counts}")
+
+
+def dist_worker(rank, world, port, data_dir, out_path) -> int:
+    """One process of phase 11's distributed part: reads the dataset from
+    its files, runs align_reads_distributed on cuda:(rank mod
+    device_count), writes every gathered alignment to ``out_path`` as
+    'description TAB start TAB edit distance TAB cigar' lines, and prints
+    one JSON line of its timings, the gather's alone among them."""
+    import socket
+
+    import torch.distributed as tdist
+
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch import io as sio
+    from scrooge_tpu_torch.parallel import distributed as dist
+
+    t_start = time.perf_counter()
+    rank, world = int(rank), int(world)
+    dist.initialize(init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                    rank=rank, timeout_s=300)
+    try:
+        t0 = time.perf_counter()
+        genome, reads = sio.load_dataset(data_dir)
+        load_s = time.perf_counter() - t0
+        dev = dist.default_device()
+        cfg = st.AlignConfig(batch_tile=16384)
+        # the card's context and the process's first call, off the clock
+        st.align_reads(genome, reads[:256], cfg, device=dev)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        alns = dist.align_reads_distributed(genome, reads, cfg, device=dev)
+        align_s = time.perf_counter() - t0
+        local, idx = dist.align_reads_distributed(genome, reads, cfg,
+                                                  gather=False, device=dev)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        again = dist.gather_alignments(local, idx, len(alns))
+        gather_s = time.perf_counter() - t0
+        if again != alns:
+            raise AssertionError("a second gather differs from the first")
+        keys = [(r.description, loc.start_in_reference) for r in reads
+                for loc in r.locations]
+        with open(out_path, "w") as f:
+            for (desc, start), a in zip(keys, alns):
+                f.write(f"{desc}\t{start}\t{a.edit_distance}\t{a.cigar}\n")
+        print(json.dumps({
+            "rank": rank, "host": socket.gethostname(), "device": str(dev),
+            "local_pairs": len(local), "load_s": load_s, "align_s": align_s,
+            "gather_bytes": sum(len(a.cigar) for a in local) + 24 * len(local),
+            "gather_s": gather_s,
+            "seconds": time.perf_counter() - t_start}), flush=True)
+    finally:
+        dist.destroy()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run(procs, logs, timeout_s, label):
+    """Wait for every process within ``timeout_s``; kill the rest on the
+    way out. Raises when one failed or ran out of time; returns each
+    process's standard output."""
+    try:
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{label}: a process outlived {timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{label} failed: " + " | ".join(
+            f"rc={p.returncode} {e[-1500:]}" for p, (_, e) in zip(procs,
+                                                                  texts)))
+    return [o for o, _ in texts]
+
+
+def distributed_path(ds, main_strs, tmp):
+    """Phase 11, part 2: two processes with gloo (see the docstring)."""
+    from scrooge_tpu_torch.utils.simulate import write_dataset
+
+    data = os.path.join(tmp, "bench")
+    write_dataset(ds, data)
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
+                        "LOCAL_RANK")}
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(2)]
+    outs = [os.path.join(tmp, f"rank{r}.tsv") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", str(r),
+         "2", str(port), data, outs[r]], cwd=ROOT, env=env,
+        stdout=logs[r][0], stderr=logs[r][1]) for r in range(2)]
+    texts = _run(procs, logs, 600, "distributed workers")
+    wall = time.perf_counter() - t0
+    rows = [json.loads(t.strip().splitlines()[-1]) for t in texts]
+    want = {(r.description, r.locations[0].start_in_reference):
+            (a.edit_distance, a.cigar) for r, a in zip(ds.reads, main_strs)}
+    equal = []
+    for out in outs:
+        got = {}
+        with open(out) as f:
+            for ln in f:
+                desc, start, ed, cigar = ln.rstrip("\n").split("\t")
+                got[(desc, int(start))] = (int(ed), cigar)
+        equal.append(sum(got.get(k) == v for k, v in want.items()))
+    fields = {}
+    for r in rows:
+        for k in ("device", "local_pairs", "load_s", "align_s",
+                  "gather_bytes", "gather_s", "seconds"):
+            v = r[k]
+            fields[f"rank{r['rank']}_{k}"] = (f"{v:.3f}"
+                                              if isinstance(v, float) else v)
+    phase("distributed", cards=len({(r["host"], r["device"]) for r in rows}),
+          processes=len(rows), pairs=len(want),
+          equal_to_main_path=" ".join(map(str, equal)),
+          wall_s=f"{wall:.3f}", **fields)
+    if any(e != len(want) for e in equal):
+        raise AssertionError(f"distributed: gathered lists equal to the main "
+                             f"path's: {equal} of {len(want)}")
+
+
+def scaling_path(kind, tmp):
+    """Phase 11, part 3: the scaling harness, on the mesh and over two
+    processes (see the docstring)."""
+    ncards = torch.cuda.device_count()
+    runs = {"mesh": ["--shards", str(max(2, ncards)), "--per_device",
+                     "16384", "--read_len", "10000", "--reps", "3"],
+            "distributed": ["--distributed", "2", "--per_process", "8192",
+                            "--read_len", "10000"]}
+    for name, args in runs.items():
+        out = os.path.join(tmp, f"scaling_{name}.csv")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "scrooge_tpu_torch.profiling.scaling",
+             "--device", "cuda", *args, "--out", out], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"scaling {name}: rc={proc.returncode} "
+                                 f"{proc.stderr[-2000:]}")
+        with open(out) as f:
+            rows = list(csv.DictReader(f))
+        count = "shards" if name == "mesh" else "processes"
+        phase(f"scaling-{name}", seconds=f"{time.perf_counter() - t0:.2f}",
+              rows=repr([{k: r[k] for k in (count, "cards", "card",
+                                            "aligns_per_second",
+                                            "weak_scaling_efficiency")}
+                         for r in rows]))
+        for r in rows:
+            n = int(r[count])
+            if not (float(r["aligns_per_second"]) > 0 and r["card"] == kind
+                    and int(r["cards"]) == min(n, ncards)):
+                raise AssertionError(f"scaling {name} row: {r}")
+        if name == "distributed" and [int(r[count]) for r in rows] != [1, 2]:
+            raise AssertionError(f"scaling distributed rows: {rows}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -891,6 +1166,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="scrooge_wide_") as tmp:
         kernels.append(wide_windows(ds, prepared, dev, ops_rate, tmp))
 
+    # ---- 11. several devices ----
+    mesh_path(ds, prepared, main_strs, cfg)
+    with tempfile.TemporaryDirectory(prefix="scrooge_parallel_") as tmp:
+        distributed_path(ds, main_strs, tmp)
+        scaling_path(kind, tmp)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -900,4 +1181,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -6,8 +6,8 @@ the reference's cpu_baseline.cpp (flags: :914-926; benchmark_baselines
 of the JAX package, so scrapers keep working; the GenASM ones map onto
 the port's engines:
 
-  genasm_device  — the CUDA kernel on --device (the plain torch engine
-                   with --device=cpu)
+  genasm_device  — the CUDA kernel on --device, every visible card for
+                   cuda (the plain torch engine with --device=cpu)
   genasm_xla     — the plain torch engine on the CPU, the same as
                    genasm_device --device=cpu
   genasm_pyref   — the port's scalar oracle
@@ -160,8 +160,10 @@ def main(argv=None) -> int:
         print(HELP_TEXT, end="")
         return 0
 
-    # raises without a card unless --device=cpu: no fallback
-    device = api.resolve_device(device_s)
+    # "cuda" is every visible card, as the JAX CLI takes every local
+    # device; it raises without one unless --device=cpu: no fallback
+    api.resolve_mesh(device_s)
+    device = device_s
     tiles = [int(x) for x in threads_s.split(",") if x]
     algorithms = [a for a in algs_s.split(",") if a]
     unknown = [a for a in algorithms if a not in ALL_ALGS]

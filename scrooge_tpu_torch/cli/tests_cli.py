@@ -3,8 +3,9 @@
 The port's own copy of ``scrooge_tpu/cli/tests_cli.py``, which mirrors the
 reference's tests.cu (flags: tests.cu:726-765; unit tests: tests.cu:782-816;
 performance test: tests.cu:335-487). ``--device`` picks the torch device,
-``cuda`` by default; there is no fallback, so without a card the run
-raises unless ``--device=cpu`` is given:
+``cuda`` by default, which aligns on every visible card (a mesh, as the
+JAX CLI takes every local device); there is no fallback, so without a
+card the run raises unless ``--device=cpu`` is given:
 
   python -m scrooge_tpu_torch.cli.tests_cli --unit_tests [--device=cpu]
   python -m scrooge_tpu_torch.cli.tests_cli --reference=... --reads=... --seeds=...
@@ -89,7 +90,7 @@ class PerformanceRun(NamedTuple):
 
 def print_device_info(device) -> None:
     """One line per device of ``device``'s type."""
-    if device.type == "cuda":
+    if torch.device(device).type == "cuda":
         names = [torch.cuda.get_device_name(i)
                  for i in range(torch.cuda.device_count())]
         platform = "gpu"
@@ -447,10 +448,13 @@ def main(argv: List[str] = None) -> int:
         print(HELP_TEXT, end="")
         return 0
 
-    # raises without a card unless the CPU is asked for: no fallback
+    # "cuda" is every visible card, as the JAX CLI takes every local
+    # device; it raises without one unless the CPU is asked for: no
+    # fallback
     if cpu_perf == opt.Opt.EXISTS:
         device_s = "cpu"
-    device = api.resolve_device(device_s)
+    api.resolve_mesh(device_s)
+    device = device_s
 
     if device_info_only == opt.Opt.EXISTS:
         print_device_info(device)

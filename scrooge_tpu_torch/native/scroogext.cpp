@@ -19,6 +19,8 @@
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
+#include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -67,18 +69,20 @@ static inline uint16_t pack8(uint64_t codes) {
 #endif
 }
 
+// Built once, under the C++11 guarantee that a function-local static is
+// initialized by one thread while the others wait: shards of a mesh pack
+// their reads on threads of their own, with the GIL released.
 static const uint8_t* encode_lut() {
-    static uint8_t lut[256];
-    static bool init = false;
-    if (!init) {
-        for (int i = 0; i < 256; i++) lut[i] = 0xFF;
-        lut['A'] = lut['a'] = 0;
-        lut['C'] = lut['c'] = 1;
-        lut['G'] = lut['g'] = 2;
-        lut['T'] = lut['t'] = 3;
-        init = true;
-    }
-    return lut;
+    static const std::array<uint8_t, 256> lut = [] {
+        std::array<uint8_t, 256> t;
+        t.fill(0xFF);
+        t['A'] = t['a'] = 0;
+        t['C'] = t['c'] = 1;
+        t['G'] = t['g'] = 2;
+        t['T'] = t['t'] = 3;
+        return t;
+    }();
+    return lut.data();
 }
 
 // One row: n ASCII bytes -> ceil(n/16) uint32 words, the rest of the Pw
@@ -239,8 +243,12 @@ static inline void decode_lane(const uint8_t* toks, int64_t capT,
 }
 
 // format_tokens(tok_addr, capT, B, totals_addr) -> list[str]
-// tokens: (B, capT) uint8 lane-major; totals: (B,) int32.
+// tokens: (B, capT) uint8 lane-major; totals: (B,) int32. Lanes are
+// decoded a chunk at a time into one buffer with the GIL released, so the
+// shard threads of a mesh format at once; only the str objects are made
+// under the GIL. A chunk's buffer stays in cache.
 static PyObject* format_tokens(PyObject*, PyObject* args) {
+    constexpr Py_ssize_t CHUNK = 256;
     unsigned long long tok_addr, totals_addr;
     Py_ssize_t capT, B;
     if (!PyArg_ParseTuple(args, "KnnK", &tok_addr, &capT, &B, &totals_addr))
@@ -250,27 +258,37 @@ static PyObject* format_tokens(PyObject*, PyObject* args) {
     PyObject* out = PyList_New(B);
     if (!out) return nullptr;
     std::vector<char> buf;
-    for (Py_ssize_t b = 0; b < B; b++) {
+    size_t offs[CHUNK + 1];
+    for (Py_ssize_t b0 = 0; b0 < B; b0 += CHUNK) {
+        const Py_ssize_t n = std::min(CHUNK, B - b0);
+        Py_BEGIN_ALLOW_THREADS
         buf.clear();
-        decode_lane(toks + b * capT, capT, totals[b],
-                    [&](int op, uint32_t cnt) {
-            char digits[8];
-            int nd = 0;
-            if (cnt == 0) digits[nd++] = '0';
-            while (cnt > 0) {
-                digits[nd++] = (char)('0' + cnt % 10);
-                cnt /= 10;
-            }
-            while (nd > 0) buf.push_back(digits[--nd]);
-            buf.push_back(OPS[op]);
-        });
-        PyObject* s = PyUnicode_FromStringAndSize(buf.data(),
-                                                  (Py_ssize_t)buf.size());
-        if (!s) {
-            Py_DECREF(out);
-            return nullptr;
+        for (Py_ssize_t k = 0; k < n; k++) {
+            offs[k] = buf.size();
+            decode_lane(toks + (b0 + k) * capT, capT, totals[b0 + k],
+                        [&](int op, uint32_t cnt) {
+                char digits[8];
+                int nd = 0;
+                if (cnt == 0) digits[nd++] = '0';
+                while (cnt > 0) {
+                    digits[nd++] = (char)('0' + cnt % 10);
+                    cnt /= 10;
+                }
+                while (nd > 0) buf.push_back(digits[--nd]);
+                buf.push_back(OPS[op]);
+            });
         }
-        PyList_SET_ITEM(out, b, s);
+        offs[n] = buf.size();
+        Py_END_ALLOW_THREADS
+        for (Py_ssize_t k = 0; k < n; k++) {
+            PyObject* s = PyUnicode_FromStringAndSize(
+                buf.data() + offs[k], (Py_ssize_t)(offs[k + 1] - offs[k]));
+            if (!s) {
+                Py_DECREF(out);
+                return nullptr;
+            }
+            PyList_SET_ITEM(out, b0 + k, s);
+        }
     }
     return out;
 }

@@ -47,7 +47,9 @@ class CudaKernel:
     The entry point's first argument selects the kernel's instantiation
     (a template parameter: the word count, the variant). ``counts[key]``
     goes up by one each time ``launch`` starts that instantiation, and
-    nowhere else, so a caller can show that a run went through it.
+    nowhere else, so a caller can show that a run went through it. The
+    count is taken under the kernel's lock: shards of a mesh launch from
+    threads of their own.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -84,7 +86,8 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol}({key}) launch failed: "
                                + ("arguments refused" if rc == -1
                                   else f"CUDA error {rc}"))
-        self.counts[key] += 1
+        with self._lock:
+            self.counts[key] += 1
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

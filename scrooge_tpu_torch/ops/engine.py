@@ -124,8 +124,8 @@ def ones_shifted(W: int, d: int):
 
 
 def align_windows(cfg: AlignConfig, max_windows: int, text_words,
-                  text_base, text_len, pattern_words,
-                  pattern_len) -> BatchResult:
+                  text_base, text_len, pattern_words, pattern_len, *,
+                  budget_bytes: Optional[int] = None) -> BatchResult:
     """Align B pairs over exactly ``max_windows`` windows.
 
     text_words: int32 packed words, any shape, read flat; lane b's text
@@ -137,7 +137,9 @@ def align_windows(cfg: AlignConfig, max_windows: int, text_words,
     pattern_len (B,) int32.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel;
-    there is no fallback between the two.
+    there is no fallback between the two. ``budget_bytes`` bounds one
+    launch's scratch on the card (_align_windows_cuda); the plain version
+    has none.
     """
     check_config(cfg)
     dev = pattern_words.device
@@ -146,17 +148,20 @@ def align_windows(cfg: AlignConfig, max_windows: int, text_words,
                                    text_len, pattern_words, pattern_len)
     if dev.type == "cuda":
         return _align_windows_cuda(cfg, max_windows, text_words, text_base,
-                                   text_len, pattern_words, pattern_len)
+                                   text_len, pattern_words, pattern_len,
+                                   budget_bytes=budget_bytes)
     raise ValueError(f"unsupported device {dev}")
 
 
 def align_batch(cfg: AlignConfig, max_windows: int, text_words, text_len,
-                pattern_words, pattern_len) -> BatchResult:
+                pattern_words, pattern_len, *,
+                budget_bytes: Optional[int] = None) -> BatchResult:
     """Unstructured pairs: text_words (B, Tw), pattern_words (B, Pw)."""
     B, Tw = text_words.shape
     base = torch.arange(B, dtype=torch.int64, device=text_words.device)
     return align_windows(cfg, max_windows, text_words, base * (Tw * 16),
-                         text_len, pattern_words, pattern_len)
+                         text_len, pattern_words, pattern_len,
+                         budget_bytes=budget_bytes)
 
 
 def _check_inputs(text_words, text_base, text_len, pattern_words,

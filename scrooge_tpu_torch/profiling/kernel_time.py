@@ -46,19 +46,21 @@ def stage_mapped(genome, reads, cfg, device="cuda"):
 
 def engine_ms(staged, reps: int = 3, groups: int = 3):
     """Milliseconds per engine call for each of ``groups`` samples of
-    ``reps`` calls, after one warm-up call."""
+    ``reps`` calls, after one warm-up call. The events are recorded on
+    the staged tensors' card, whichever card is current."""
     cfg, maxw, args, _ = staged
-    engine.align_windows(cfg, maxw, *args)
-    samples = []
-    for _ in range(max(groups, 1)):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            engine.align_windows(cfg, maxw, *args)
-        t1.record()
-        t1.synchronize()
-        samples.append(t0.elapsed_time(t1) / reps)
+    with torch.cuda.device(args[3].device):
+        engine.align_windows(cfg, maxw, *args)
+        samples = []
+        for _ in range(max(groups, 1)):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(reps):
+                engine.align_windows(cfg, maxw, *args)
+            t1.record()
+            t1.synchronize()
+            samples.append(t0.elapsed_time(t1) / reps)
     return samples
 
 

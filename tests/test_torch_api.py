@@ -171,8 +171,8 @@ def test_failed_lanes_are_retried_on_pyref(monkeypatch, packed):
 
     real = engine.align_batch
 
-    def failing(*args):
-        res = real(*args)
+    def failing(*args, **kwargs):
+        res = real(*args, **kwargs)
         res.failed[::3] |= engine.FAIL_INCOMPLETE
         return res
 

@@ -251,6 +251,67 @@ def test_api_on_cuda(cuda):
     assert on_card == st.align_pairs(texts, queries, device="cpu")
 
 
+def test_mesh_on_one_card_equals_one_device(cuda):
+    """Two shards on two streams of one card (and a shard of each tile
+    per card where there are more) give the one-device outputs, in
+    strings and packed, with one launch a shard a tile."""
+    from scrooge_tpu_torch.utils.simulate import simulate_dataset
+
+    ds = simulate_dataset(genome_len=100_000, num_reads=300, read_len=2000,
+                          accuracy=0.95, seed=3)
+    cfg = st.AlignConfig(batch_tile=256)  # tiles of 256 and 44
+    one = st.align_reads(ds.genome, ds.reads, cfg, device="cuda:0")
+    assert one[:40] == st.align_reads(ds.genome, ds.reads[:40], cfg,
+                                      device="cpu")
+    kern = _cuda.GENASM_WINDOWS1
+    for mesh in (["cuda:0", "cuda:0"], "cuda"):
+        shards = 2 if mesh != "cuda" else torch.cuda.device_count()
+        before = kern.counts[1]
+        got, stats = st.align_reads(ds.genome, ds.reads, cfg,
+                                    return_stats=True, device=mesh)
+        assert got == one and stats.num_pairs == 300
+        assert kern.counts[1] - before == 2 * shards
+        packed = st.align_reads(ds.genome, ds.reads, cfg, return_packed=True,
+                                device=mesh)
+        assert packed.to_alignments() == one
+
+
+def test_mesh_engine_and_small_budgets_change_no_output(cuda):
+    """align_batch_on_mesh on two shards of one card against one launch
+    at W=512, and align_reads with a scratch budget that splits every
+    shard's launch."""
+    from scrooge_tpu_torch.parallel import mesh as M
+
+    cfg = st.AlignConfig(W=512, K=512, O=257)
+    text, tlen, pattern, plen = _batch(11, 50, 900, 800)
+    host = (pack.pack_2bit(torch.from_numpy(text)), torch.from_numpy(tlen),
+            pack.pack_2bit(torch.from_numpy(pattern)),
+            torch.from_numpy(plen))
+    maxw = cfg.max_windows(800)
+    whole = engine.align_batch(cfg, maxw, *(t.to(cuda) for t in host))
+    for s in M.align_batch_on_mesh(cfg, maxw, ["cuda:0", "cuda:0"], *host):
+        idx = torch.from_numpy(s.lanes).to(cuda)
+        _same(s.result, engine.BatchResult(
+            whole.edit_distance[idx], whole.failed[idx],
+            whole.entries[:, :, idx], whole.counts[:, idx]))
+    texts = ["".join("ACGT"[c] for c in row[: tlen[b]])
+             for b, row in enumerate(text)]
+    genome = st.Genome(content="".join(texts))
+    starts = np.cumsum([0] + [len(t) for t in texts[:-1]])
+    reads = [st.Read(description=f"r{b}",
+                     content="".join("ACGT"[c] for c in pattern[b, : plen[b]]),
+                     locations=[st.CandidateLocation(
+                         start_in_reference=int(starts[b]))])
+             for b in range(50)]
+    want = st.align_reads(genome, reads, cfg, device="cuda:0")
+    kern, nw = _cuda.GENASM_WINDOWS_WIDE, engine.num_words(cfg.W)
+    before = kern.counts[nw]
+    got = st.align_reads(genome, reads, cfg, device=["cuda:0", "cuda:0"],
+                         budget_bytes=8 * sum(engine.scratch_words(cfg, 8)))
+    assert got == want
+    assert kern.counts[nw] - before >= 6  # 25 pairs a shard, 8 a launch
+
+
 @pytest.mark.parametrize("case", [(31, 64, 2048, True)]
                          + [(m, n, 2048, False) for m, n in
                             kernel_lab.MN_CASES]

@@ -20,7 +20,8 @@ import scrooge_tpu_torch as st
 from scrooge_tpu_torch import baselines, cigar, io, wfa
 from scrooge_tpu_torch.cli import baseline_cli, options, tests_cli
 from scrooge_tpu_torch.ops import _cuda, engine, pack
-from scrooge_tpu_torch.profiling import kernel_time, sweep
+from scrooge_tpu_torch.parallel import distributed, mesh
+from scrooge_tpu_torch.profiling import kernel_time, scaling, sweep
 from scrooge_tpu_torch.tools import (cigar_tools, convert, kernel_lab,
                                      window_lab)
 from scrooge_tpu_torch.utils.simulate import edge_pairs
@@ -35,6 +36,15 @@ for backend in ("auto", "pyref"):
                 locations=[st.CandidateLocation(start_in_reference=8)])
     p = st.align_reads(g, [r], cfg, return_packed=True, device="cpu")
     assert p.to_alignments() == [st.Alignment("31=31=31=31=31=5=", 0)], p
+m = st.align_pairs(["AAAACCCCGGGGTTTT"] * 3, ["CCCCGGGGTTTTAAAA"] * 3,
+                   device=["cpu"] * 2)
+assert [(x.edit_distance, x.cigar) for x in m] == [(8, "4D12=4I")] * 3, m
+assert len(mesh.align_batch_on_mesh(
+    st.AlignConfig(), 8, ["cpu"] * 2, *(pack.pack_2bit(torch.zeros(3, 40, dtype=torch.uint8)),
+                           torch.full((3,), 40, dtype=torch.int32)) * 2)) == 2
+distributed.initialize()  # no cluster environment: a no-op
+assert distributed.align_reads_distributed(g, [r], device="cpu") == \
+    st.align_reads(g, [r], device="cpu")
 lab = kernel_lab.run_plain("full", 2,
                            *kernel_lab.from_lab_layout(
                                *kernel_lab.lab_inputs(128)))
@@ -60,6 +70,9 @@ with tempfile.TemporaryDirectory() as tmp:
     assert sweep.main(["device", "simulated:2:400", "--device=cpu",
                        "--families=WO", "--max_W=320",
                        "--max_experiments=1", f"--profile_dir={tmp}"]) == 0
+    assert scaling.main(["--device", "cpu", "--per_device", "8",
+                         "--read_len", "100", "--reps", "1",
+                         "--out", os.path.join(tmp, "s.csv")]) == 0
 assert "matplotlib" not in sys.modules  # cigar_tools.inspect loads it
 assert tests_cli.main(["--unit_tests", "--device=cpu"]) == 0
 assert baseline_cli.main(["--simulated=2,150", "--threads=128",

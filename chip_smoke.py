@@ -53,8 +53,10 @@ Phases, one line each:
      --algorithms=genasm_device,exact on the first 64 reads of phase 7's
      512 x 2 kbp set written to files, whose genasm_device lines must
      equal align_reads on the card for the same pairs;
- 10. windows wider than 256 (genasm_windows_wide.cu, a group of G threads
-     a pair): the kernel against plain on 256 pairs of ~2 kbp at W/K/O
+ 10. windows wider than 256 (genasm_windows_wide.cu, a warp a pair, in
+     groups of G threads that each fill a row of a pass): its registers
+     and spills at G = 8, 16 and 32; the kernel against plain on 256 pairs
+     of ~2 kbp at W/K/O
      257/257/129 (one bit in the top word), 320/320/161, 512/512/257 and
      512/512/0 (G = 8) and on 64 pairs at 1024/1024/513 (G = 16) and
      2048/2048/1025 (G = 32); on 256 unrelated pairs at 512/64/257, which
@@ -63,7 +65,11 @@ Phases, one line each:
      align_reads at W=512 K=512 O=257 on the first 1024 reads of phase
      4's dataset (one tile), strings then packed, checked as in phase 4
      with the wide kernel's launch count, the kernel against plain on
-     that tile and its kernel-only time; then the sweep entry point on the
+     that tile, its kernel-only time, and its bound beside the bytes of R
+     the tile must write (a second floor of the kernel); then align_reads
+     at 1024/1024/513 and 2048/2048/1025 on the first 64 of phase 7's
+     2 kbp reads, each tile against plain and checked as in phase 7, with
+     its bound and launch count; then the sweep entry point on the
      card, ``device simulated:1024:10000 --families WO --max_W 512
      --max_experiments 2`` into a temporary directory, whose CSV must hold
      W = 256 and 512, each with and without ET, at a positive rate, with
@@ -699,15 +705,35 @@ def file_path(ds, main_strs, small, dev, tmp):
                              "align_reads on the card")
 
 
-def wide_windows(ds, prepared, dev, ops_rate, tmp):
-    """Phase 10 (see the docstring): returns the kernels-line entry of the
-    wide kernel."""
+def r_floor(cfg, res):
+    """Bytes of R a tile must write, and their time at the memory rate:
+    every searched row's stored words (the words of bits [O-1, W) of
+    columns < COLS), the rows counted from the plain result's DP cells
+    (a row of a window with n chars of text is n+1 cells, n <= W), so a
+    floor; the kernel writes up to a pass's rows more a window."""
+    from scrooge_tpu_torch.ops import engine
+
+    rows = int(res.work[0].sum().item()) // (cfg.W + 1)
+    stored = engine.num_words(cfg.W) - max(cfg.O - 1, 0) // engine.WORD
+    nbytes = rows * stored * cfg.columns * 8
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
+    """Phase 10 (see the docstring): returns the kernels-line entries of
+    the wide kernel, at G = 8 (NW=8), 16 (NW=16) and 32 (NW=32)."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch.ops import _cuda, engine
     from scrooge_tpu_torch.profiling import kernel_time, sweep
     from scrooge_tpu_torch.utils.simulate import SimulatedDataset
 
     wide = _cuda.GENASM_WINDOWS_WIDE
+    ptxas = ptxas_summary(wide.build_log)
+    phase("wide-ptxas", source=WIDE_SOURCE, ptxas=repr(ptxas))
+    for g in (8, 16, 32):
+        if not re.search(rf"genasm_windows_wide_kernel<{g}>: \d+ regs, 0 B "
+                         "spill", ptxas):
+            raise AssertionError(f"the wide kernel at G = {g}: {ptxas}")
     for (W, K, O), B in (((257, 257, 129), 256), ((320, 320, 161), 256),
                          ((512, 512, 257), 256), ((512, 512, 0), 256),
                          ((1024, 1024, 513), 64), ((2048, 2048, 1025), 64)):
@@ -748,8 +774,40 @@ def wide_windows(ds, prepared, dev, ops_rate, tmp):
     kernel_only("w512-kernel-only", staged, len(sub.reads))
     bound_ms, bound_by, detail = window_bound(cfg, staged[1], staged[2],
                                               tile["plain"], ops_rate)
+    r_bytes, r_ms = r_floor(cfg, tile["plain"])
     phase("bound", kernel="genasm_windows_wide[NW=8]", W=cfg.W,
-          bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, **detail)
+          bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, **detail,
+          r_bytes_floor=r_bytes, r_floor_ms=f"{r_ms:.6f}")
+    kernels = [{"name": "genasm_windows_wide[NW=8]", "route": "cuda",
+                "source": WIDE_SOURCE, "replaces": WIDE_REPLACES,
+                "launches": launches, "max_abs_err": tile["max_abs_err"],
+                "ms": tile["ms"], "plain_ms": tile["plain_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+                "shape": f"W=512 K=512 O=257 B={staged[3]}"}]
+
+    # G = 16 and 32: align_reads on 64 of phase 7's 2 kbp reads
+    sub = SimulatedDataset(genome=small.genome, reads=small.reads[:64])
+    for nw, (W, K, O) in ((16, (1024, 1024, 513)), (32, (2048, 2048, 1025))):
+        # batch_tile comes in 128s: one tile of the 64 reads
+        c = st.AlignConfig(W=W, K=K, O=O, batch_tile=128)
+        sst = kernel_time.stage_mapped(sprep, sub.reads, c, dev)
+        cmp = compare(c, sst[1], sst[2], "64x2kbp path tile")
+        cnt, _ = drive_path(f"wide-path-w{W}", c, sub, sprep, dev, 2, 32)
+        n_launch = cnt[wide].get(nw, 0)
+        if n_launch < 1 or any(cnt[k] for k in cnt if k is not wide):
+            raise AssertionError(f"the W={W} path's launches: {cnt}")
+        b_ms, b_by, det = window_bound(c, sst[1], sst[2], cmp["plain"],
+                                       ops_rate)
+        phase("bound", kernel=f"genasm_windows_wide[NW={nw}]", W=W,
+              bound_ms=f"{b_ms:.6f}", bound_by=b_by, **det)
+        kernels.append({
+            "name": f"genasm_windows_wide[NW={nw}]", "route": "cuda",
+            "source": WIDE_SOURCE, "replaces": WIDE_REPLACES,
+            "launches": n_launch, "max_abs_err": cmp["max_abs_err"],
+            "ms": cmp["ms"], "plain_ms": cmp["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": f"W={W} K={K} O={O} B={sst[3]}"})
 
     # the sweep entry point on the card
     out = os.path.join(tmp, "sweep")
@@ -769,12 +827,7 @@ def wide_windows(ds, prepared, dev, ops_rate, tmp):
     if rc != 0 or got != {(w, et, e) for w, e in want
                           for et in ("False", "True")}:
         raise AssertionError(f"sweep rows: {rows}")
-    return {"name": "genasm_windows_wide[NW=8]", "route": "cuda",
-            "source": WIDE_SOURCE, "replaces": WIDE_REPLACES,
-            "launches": launches, "max_abs_err": tile["max_abs_err"],
-            "ms": tile["ms"], "plain_ms": tile["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": f"W=512 K=512 O=257 B={staged[3]}"}
+    return kernels
 
 
 def mesh_path(ds, prepared, main_strs, cfg):
@@ -1164,7 +1217,8 @@ def main() -> int:
 
     # ---- 10. windows wider than 256 ----
     with tempfile.TemporaryDirectory(prefix="scrooge_wide_") as tmp:
-        kernels.append(wide_windows(ds, prepared, dev, ops_rate, tmp))
+        kernels += wide_windows(ds, prepared, small, sprep, dev, ops_rate,
+                                tmp)
 
     # ---- 11. several devices ----
     mesh_path(ds, prepared, main_strs, cfg)

@@ -22,15 +22,20 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def compile_once(source: str, compiler: str, flags: Sequence[str],
                  timeout: int = 900) -> Tuple[str, str]:
     """(path of the built library, the compiler's output). The output is
-    empty when the library was built before. Raises RuntimeError when the
-    compiler cannot be run or fails; there is no fallback."""
+    kept beside the library (``.log``) and read back when the library was
+    built before, empty where that file is missing. Raises RuntimeError
+    when the compiler cannot be run or fails; there is no fallback."""
     with open(source, "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(
             (*flags, platform.machine())).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(BUILD_DIR, f"{stem}-{key}.so")
     if os.path.exists(so):
-        return so, ""
+        try:
+            with open(so + ".log") as f:
+                return so, f.read()
+        except OSError:
+            return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
@@ -44,5 +49,8 @@ def compile_once(source: str, compiler: str, flags: Sequence[str],
     if proc.returncode != 0:
         raise RuntimeError(f"{compiler} failed on {source} (exit "
                            f"{proc.returncode}):\n{log}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", so + ".log")
     os.replace(tmp, so)
     return so, log

@@ -16,7 +16,8 @@ Port of the JAX package's window engines:
   (scrooge_tpu/ops/engine_xla.py:105-443), which the JAX package runs for
   every W its Pallas kernel cannot hold (W > 256). On the card that is
   ``csrc/genasm_windows_wide.cu``: five to 32 words (W = 257..2048), a
-  group of G threads a pair, thread t holding word t of every bitvector.
+  warp a pair, in groups of G threads that each fill a row of a pass,
+  thread t holding word t of every bitvector.
   ``align_windows_plain`` below is their lane-batched lockstep counterpart
   in torch ops. The CPU path and the tests use it, and on the card it is
   what every kernel is held against.
@@ -77,6 +78,8 @@ WORD = 64
 MULTIWORD_MAX_NW = 4
 # share of the card's free memory a call's R and forefront scratch may take
 SCRATCH_SHARE = 0.75
+# forefront slots below column 0 in genasm_windows_wide.cu (its FF_PAD)
+WIDE_FF_PAD = 72
 
 
 class BatchResult(NamedTuple):
@@ -198,16 +201,17 @@ def window_kernel(cfg: AlignConfig):
 
 
 def group_size(W: int) -> int:
-    """Threads a pair of genasm_windows_wide.cu: the power of two >= NW,
-    at least 8 (8, 16 or 32)."""
+    """Threads a row of genasm_windows_wide.cu, one a word: the power of
+    two >= NW, at least 8 (8, 16 or 32). A warp holds 32 / G of these
+    groups, the rows of a pass of its one pair."""
     return max(8, 1 << (num_words(W) - 1).bit_length())
 
 
 def pairs_per_warp(cfg: AlignConfig) -> int:
     """Pairs a warp of the config's kernel runs: 32 at one thread a pair,
-    32 / G for the wide kernel. A launch's lanes come in these units."""
-    return (32 if num_words(cfg.W) <= MULTIWORD_MAX_NW
-            else 32 // group_size(cfg.W))
+    one for the wide kernel (a warp a pair). A launch's lanes come in
+    these units."""
+    return 32 if num_words(cfg.W) <= MULTIWORD_MAX_NW else 1
 
 
 def scratch_words(cfg: AlignConfig, B: int):
@@ -220,8 +224,12 @@ def scratch_words(cfg: AlignConfig, B: int):
     genasm_windows.cu keeps rows d <= K+1 (the row pair at d = K computes
     row K+1) in blocks of 32 lanes, and a forefront of W+17 columns of NW
     words (ff_cols: 0..W and the top fill batch's columns above W).
-    genasm_windows_wide.cu fills one row a pass: rows d <= K, and a
-    forefront of the W+1 columns, each pair's own.
+    genasm_windows_wide.cu stores rows d <= K (a pass never stores past
+    K), each laid out along its skewed word group: column i's word q at
+    slot i + NW-1-q, so W-O+NWS slots a row (NWS the stored words); and a
+    forefront of the W+1 columns laid out the same way, W+NW slots of NW
+    words, WIDE_FF_PAD slots below them that the ring's last loads read,
+    and one slot more for the row above row 0, each pair's own.
     """
     nw = num_words(cfg.W)
     if nw == 1:
@@ -231,7 +239,8 @@ def scratch_words(cfg: AlignConfig, B: int):
         lanes = -(-B // 32) * 32
         return ((cfg.K + 2) * stored * cfg.columns * lanes,
                 (cfg.W + 17) * nw * lanes)
-    return (cfg.K + 1) * stored * cfg.columns * B, (cfg.W + 1) * nw * B
+    return ((cfg.K + 1) * stored * (cfg.columns + stored - 1) * B,
+            (WIDE_FF_PAD + cfg.W + nw + 1) * nw * B)
 
 
 def launch_chunks(cfg: AlignConfig, B: int, budget_bytes: int):

@@ -24,6 +24,20 @@ wide path):
   tb8      CH = 8 traceback offsets a batch of R loads at two words (full
            has 4)
 
+``csrc/genasm_windows_wide.cu`` (five to 32 words, W=512 K=512 O=257
+on 1,024 reads, the W=512 path's tile):
+
+  full     the source as it is: a warp a pair, 4 rows a pass at G = 8
+  clocks   full with SM clock reads: set-up / fill / traceback cycles and
+           the fill's column steps, per thread (so that it applies to
+           another version of the file too, ``--kernel_file``)
+  u8       UNROLL = 8: the forefront ring 8 steps deep (full has 16)
+  u32      UNROLL = 32: 32 steps deep
+  rows1    one row a pass (MAX_ROWS = 1; full has 32/G, 4 at G = 8)
+  rows2    two rows a pass
+  t64      64 threads a block (full has 32)
+  nocs     R stored without the streaming hint
+
 ``csrc/genasm_fill_lab.cu`` (the fill lab, kernel_lab.py's kernel, at
 2048 and 16384 lanes, its full / nostore / noff each):
 
@@ -40,8 +54,13 @@ variants in turns: 3 calls a sample on the tile, one 64-window launch
 in the fill lab.
 
     python -m scrooge_tpu_torch.tools.window_lab [variant ...] \\
-        [--source genasm_windows1.cu|genasm_windows.cu|genasm_fill_lab.cu] \\
-        [--reads 16384]
+        [--source genasm_windows1.cu|genasm_windows.cu|
+                  genasm_windows_wide.cu|genasm_fill_lab.cu] \\
+        [--reads N] [--kernel_file PATH]
+
+``--reads`` defaults to 16384 (1024 for the wide source). ``--kernel_file``
+builds the variants from another version of the source (the parent's,
+unpacked with ``git archive``), with the same entry point and scratch.
 
 needs a CUDA card: there is no plain version of a timing variant.
 """
@@ -95,8 +114,45 @@ _CLOCKS = (
             "  cy[2 * nb + b] = cyc[2];\n"),
 )
 
+
+def _after(anchor: str, text: str):
+    """An edit that puts ``text`` after ``anchor``."""
+    return anchor, anchor + text
+
+
+# The wide kernel's clock reads, per thread, on anchors that this file and
+# its first version (one row a pass) share: a step counter on the column
+# loop of either, and the sums, 4 words a thread by global thread id, in
+# the forefront scratch past B * (W + 4 * MAX_NW) * NW words, beyond
+# either version's forefronts (launch allocates them).
+_WIDE_CLOCKS = (
+    _before("  for (int win = 0; win < P.max_windows; ++win) {\n",
+            "  unsigned long long cyc[4] = {0, 0, 0, 0};  // sections, steps\n"
+            "  long long c_at = 0;\n"),
+    _before("    // ---- window set-up, each thread its word ----\n",
+            "      c_at = clock64();\n"),
+    _before("    // ---- DP fill (pyref.genasm_dc)", _clock(0)),
+    _before("    // ---- level traceback (engine_pallas.py level_body) ----\n",
+            _clock(1)),
+    _after(" = nrun;\n", _clock(2)),
+    # alternatives: the first version's column loop, this one's blocks
+    (("      for (int i = W - 1; i >= 0; --i) {\n",
+      "      for (int blk = 0; blk < nblocks; ++blk) {\n"),
+     ("      cyc[3] += (unsigned long long)W;\n"
+      "      for (int i = W - 1; i >= 0; --i) {\n",
+      "      cyc[3] += (unsigned long long)nblocks * UNROLL;\n"
+      "      for (int blk = 0; blk < nblocks; ++blk) {\n")),
+    _before("}\n\n}  // namespace\n\n#ifdef __CUDACC__\n",
+            "  {\n    uint64_t* cy = P.ff + nb * (W + 4 * MAX_NW) * NW +\n"
+            "        ((size_t)blockIdx.x * THREADS + threadIdx.x) * 4;\n"
+            "    for (int k = 0; k < 4; ++k) cy[k] = cyc[k];\n  }\n"),
+)
+WIDE_CLOCK_WORDS = 4 * 32  # words of clock sums a pair, at most
+
 # source -> (kernel, (W, K, O) of its tile, {variant: (anchor, new) edits})
-# each anchor must occur once in the source
+# each anchor must occur once in the source; an edit whose anchor is a
+# tuple takes the one alternative the source holds (its text at the same
+# index)
 SOURCES = {
     "genasm_windows1.cu": (_cuda.GENASM_WINDOWS1, (64, 64, 33), {
         "full": (),
@@ -127,6 +183,21 @@ SOURCES = {
         ),
         "tb8": (("  return NW == 2 ? 4 : 8;", "  return 8;"),),
     }),
+    "genasm_windows_wide.cu": (_cuda.GENASM_WINDOWS_WIDE, (512, 512, 257), {
+        "full": (),
+        "clocks": _WIDE_CLOCKS,
+        "u8": (("constexpr int UNROLL = 16;", "constexpr int UNROLL = 8;"),),
+        "u32": (("constexpr int UNROLL = 16;",
+                 "constexpr int UNROLL = 32;"),),
+        "rows1": (("constexpr int MAX_ROWS = 4;",
+                   "constexpr int MAX_ROWS = 1;"),),
+        "rows2": (("constexpr int MAX_ROWS = 4;",
+                   "constexpr int MAX_ROWS = 2;"),),
+        "t64": (("constexpr int THREADS = 32;",
+                 "constexpr int THREADS = 64;"),),
+        "nocs": (("  __stcs((unsigned long long*)p, (unsigned long long)v);",
+                  "  *p = v;"),),
+    }),
     "genasm_fill_lab.cu": (_cuda.GENASM_FILL_LAB, None, {
         "full": (),
         "g4": (("constexpr int G = 8;", "constexpr int G = 4;"),),
@@ -134,24 +205,33 @@ SOURCES = {
     }),
 }
 FILL_LAB = "genasm_fill_lab.cu"
+WIDE = "genasm_windows_wide.cu"
 FILL_BATCHES = (2048, 16384)  # lanes the fill lab's variants are timed at
 DEFAULT_SOURCE = "genasm_windows1.cu"
 # the one-word kernel's variants
 VARIANTS = tuple(SOURCES[DEFAULT_SOURCE][2])
 
 
-def variant_source(variant: str, source: str = DEFAULT_SOURCE) -> str:
-    """The kernel source with ``variant``'s edits; raises ValueError when
-    an anchor does not occur exactly once."""
+def variant_source(variant: str, source: str = DEFAULT_SOURCE,
+                   path: str | None = None) -> str:
+    """The kernel source (or the file at ``path``, another version of it)
+    with ``variant``'s edits; raises ValueError when an anchor does not
+    occur exactly once."""
     if source not in SOURCES:
         raise ValueError(f"source {source!r} is not one of {tuple(SOURCES)}")
     kernel, _, edits = SOURCES[source]
     if variant not in edits:
         raise ValueError(f"variant {variant!r} is not one of "
                          f"{tuple(edits)}")
-    with open(os.path.join(_cuda.CSRC, kernel.source)) as f:
+    with open(path or os.path.join(_cuda.CSRC, kernel.source)) as f:
         src = f.read()
     for anchor, new in edits[variant]:
+        if isinstance(anchor, tuple):
+            held = [k for k, a in enumerate(anchor) if a in src]
+            if len(held) != 1:
+                raise ValueError(f"{variant}: {len(held)} of the anchors "
+                                 f"{anchor!r} occur in the kernel")
+            anchor, new = anchor[held[0]], new[held[0]]
         if src.count(anchor) != 1:
             raise ValueError(f"{variant}: anchor {anchor.strip()!r} occurs "
                              f"{src.count(anchor)} times in the kernel")
@@ -159,25 +239,29 @@ def variant_source(variant: str, source: str = DEFAULT_SOURCE) -> str:
     return src
 
 
-def variant_kernel(variant: str,
-                   source: str = DEFAULT_SOURCE) -> _cuda.CudaKernel:
-    """A CudaKernel for the variant's source, written under the build
-    directory; ``full`` is the kernel the engine launches."""
+def variant_kernel(variant: str, source: str = DEFAULT_SOURCE,
+                   path: str | None = None) -> _cuda.CudaKernel:
+    """A CudaKernel for the variant's source (of the file at ``path``, if
+    given), written under the build directory; ``full`` of the source
+    itself is the kernel the engine launches."""
     kernel = SOURCES[source][0]
-    if variant == "full":
+    if variant == "full" and path is None:
         return kernel
-    stem = os.path.splitext(kernel.source)[0]
-    path = os.path.join(BUILD_DIR, "window_lab", f"{stem}_{variant}.cu")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(variant_source(variant, source))
+    stem = os.path.splitext(kernel.source)[0] + ("_file" if path else "")
+    out = os.path.join(BUILD_DIR, "window_lab", f"{stem}_{variant}.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(variant_source(variant, source, path))
+    path = out
     return _cuda.CudaKernel(path, kernel.symbol, kernel.argtypes[1:])
 
 
 def launch(kernel, cfg, maxw, args, extra: int = 0):
     """One launch with the engine's scratch (engine.scratch_words) and
     ``extra`` * B more int64 words after R. Returns (BatchResult, those
-    extra words as an (extra, B) tensor)."""
+    extra words as an (extra, B) tensor). The wide kernel's clock sums go
+    to the forefront scratch instead, past B * (W + 128) * NW words: there
+    they come back as (extra * B / 4, 4), a row a thread."""
     tw, base, tlen, pw, plen = args
     dev, B = pw.device, int(plen.shape[0])
     ed = torch.empty(B, dtype=torch.int32, device=dev)
@@ -186,10 +270,15 @@ def launch(kernel, cfg, maxw, args, extra: int = 0):
                           dtype=torch.int16, device=dev)
     counts = torch.empty((maxw, B), dtype=torch.int32, device=dev)
     nr, nf = engine.scratch_words(cfg, B)
-    R = torch.empty(nr + extra * B, dtype=torch.int64, device=dev)
+    wide = engine.window_kernel(cfg) is _cuda.GENASM_WINDOWS_WIDE
+    R = torch.empty(nr + (0 if wide else extra * B), dtype=torch.int64,
+                    device=dev)
     scratch = (R.data_ptr(),)
+    at = B * (cfg.W + 128) * engine.num_words(cfg.W)  # the clock sums
     if nf:
-        ff = torch.empty(nf, dtype=torch.int64, device=dev)
+        ff = (torch.zeros(at + extra * B, dtype=torch.int64, device=dev)
+              if wide and extra else
+              torch.empty(nf, dtype=torch.int64, device=dev))
         scratch += (ff.data_ptr(),)
     with torch.cuda.device(dev):
         kernel.launch(engine.num_words(cfg.W), tw.data_ptr(), tw.numel(),
@@ -199,6 +288,9 @@ def launch(kernel, cfg, maxw, args, extra: int = 0):
                       failed.data_ptr(), entries.data_ptr(),
                       counts.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
+    if wide:
+        return (engine.BatchResult(ed, failed, entries, counts),
+                ff[at:].view(-1, 4))
     return (engine.BatchResult(ed, failed, entries, counts),
             R[nr:].view(extra, B))
 
@@ -250,22 +342,25 @@ def _rows(kernels, cases, same, samples, extra=None):
 
 
 def measure(variants, staged, rounds: int = 3, reps: int = 3,
-            source: str = DEFAULT_SOURCE):
-    """Each variant of ``source`` built, held against the engine's own
-    output on the staged tile, then timed in turns: ``rounds`` samples of
-    ``reps`` calls each. Returns one dict per variant."""
+            source: str = DEFAULT_SOURCE, path: str | None = None):
+    """Each variant of ``source`` (of the file at ``path``, if given)
+    built, held against the engine's own output on the staged tile, then
+    timed in turns: ``rounds`` samples of ``reps`` calls each. Returns one
+    dict per variant."""
     cfg, maxw, args, _ = staged
-    kernels = {v: variant_kernel(v, source) for v in variants}
+    kernels = {v: variant_kernel(v, source, path) for v in variants}
     _cuda.build_all(tuple(kernels.values()))
     want = engine.align_windows(cfg, maxw, *args)
+    extra = dict.fromkeys(kernels, 0)
+    if "clocks" in kernels:
+        extra["clocks"] = WIDE_CLOCK_WORDS if source == WIDE else 3
     same, cycles = {}, {}
     for v, k in kernels.items():
-        got, cyc = launch(k, cfg, maxw, args, 3 if v == "clocks" else 0)
+        got, cyc = launch(k, cfg, maxw, args, extra[v])
         same[v] = _same(got, want)
         cycles[v] = dict(cycles=cyc)
     samples = time_in_turns(
-        {(v, ""): (lambda k=k, e=3 if v == "clocks" else 0:
-                   launch(k, cfg, maxw, args, e))
+        {(v, ""): (lambda k=k, e=extra[v]: launch(k, cfg, maxw, args, e))
          for v, k in kernels.items()}, rounds, reps)
     return _rows(kernels, ("",), same, samples, cycles)
 
@@ -317,15 +412,28 @@ def section_split(cycles: torch.Tensor, mhz: float):
                 max_lane_ms=float(total.max()) / (mhz * 1e3))
 
 
+def wide_split(rows: torch.Tensor, mhz: float):
+    """The wide kernel's (threads, 4) clock rows (three sections and the
+    fill's column steps, zero for threads that never ran) -> section_split
+    of the threads that ran, and the fill's SM cycles a column step."""
+    ran = rows[rows[:, :3].sum(1) > 0].double()
+    out = section_split(ran[:, :3].T, mhz)
+    out["cycles_a_step"] = float(ran[:, 1].sum() / ran[:, 3].sum())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*")
     ap.add_argument("--source", default=DEFAULT_SOURCE, choices=SOURCES)
-    ap.add_argument("--reads", type=int, default=16384)
+    ap.add_argument("--reads", type=int, default=None)
+    ap.add_argument("--kernel_file", default=None)
     args = ap.parse_args(argv)
     variants = args.variants or list(SOURCES[args.source][2])
     for v in variants:
-        variant_source(v, args.source)  # names and anchors, before work
+        # names and anchors, before work
+        variant_source(v, args.source, args.kernel_file)
+    reads = args.reads or (1024 if args.source == WIDE else 16384)
     dev = resolve_device("cuda")
     variants = ["full"] + [v for v in variants if v != "full"]
     where = torch.cuda.get_device_name(dev)
@@ -338,14 +446,17 @@ def main(argv=None) -> int:
         from ..utils.simulate import simulate_dataset
 
         W, K, O = SOURCES[args.source][1]
-        cfg = AlignConfig(W=W, K=K, O=O, batch_tile=args.reads)
-        ds = simulate_dataset(genome_len=1_000_000, num_reads=args.reads,
+        cfg = AlignConfig(W=W, K=K, O=O, batch_tile=reads)
+        ds = simulate_dataset(genome_len=1_000_000, num_reads=reads,
                               read_len=10000, accuracy=0.95, seed=7)
         staged = kernel_time.stage_mapped(st.prepare_genome(ds.genome),
                                           ds.reads, cfg, dev)
-        rows = measure(variants, staged, source=args.source)
+        rows = measure(variants, staged, source=args.source,
+                       path=args.kernel_file)
         oracle = "the engine"
         where += f", {staged[3]} reads"
+        if args.kernel_file:
+            where += f", {args.kernel_file}"
     full = {r["case"]: r["median_ms"] for r in rows
             if r["variant"] == "full"}
     for r in rows:
@@ -356,13 +467,18 @@ def main(argv=None) -> int:
               f"({med / full[r['case']]:.3f} x full), same output as "
               f"{oracle}: {r['same']}, {r['ptxas']} ({where})", flush=True)
         if r["variant"] == "clocks":
-            s = section_split(r["cycles"], _max_sm_mhz())
+            wide = args.source == WIDE
+            s = (wide_split if wide else section_split)(r["cycles"],
+                                                        _max_sm_mhz())
             print("clocks : share of lane cycles "
                   + ", ".join(f"{n} {x:.3f}" for n, x in
                               zip(SECTIONS, s["shares"]))
                   + f"; lane total at the max SM clock: mean "
                   f"{s['mean_lane_ms']:.3f} ms, largest "
-                  f"{s['max_lane_ms']:.3f} ms", flush=True)
+                  f"{s['max_lane_ms']:.3f} ms"
+                  + (f"; fill cycles a column step "
+                     f"{s['cycles_a_step']:.1f}" if wide else ""),
+                  flush=True)
     if not all(r["same"] for r in rows):
         raise SystemExit(f"a variant's output differs from {oracle}'s")
     return 0

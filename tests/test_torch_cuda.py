@@ -188,10 +188,10 @@ def test_multiword_kernel_refuses_one_word_and_wide_windows(cuda, nw, W):
 
 @pytest.mark.parametrize("wko", [(512, 512, 257), (2048, 2048, 1025)])
 def test_wide_kernel_split_launches_match_one(cuda, wko):
-    """A tile split into five launches by a small scratch budget (a
-    part-filled last warp among them at W=512) gives the one launch's
-    outputs; W=2048 (G = 32) takes 269 MB of R a pair, so a tile of a few
-    hundred pairs splits by itself."""
+    """A tile split into five launches by a small scratch budget (12
+    pairs a launch, the last 2) gives the one launch's outputs; W=2048
+    (G = 32) takes 273 MB of R a pair, so a tile of a few hundred pairs
+    splits by itself."""
     W, K, O = wko
     cfg = st.AlignConfig(W=W, K=K, O=O)
     text, tlen, pattern, plen = _batch(9, 50, 900, 800)

@@ -143,15 +143,21 @@ def test_w2048_is_taken_and_w2049_refused():
             call(AlignConfig(W=2049, K=2049, O=1025))
 
 
-@pytest.mark.parametrize("wko, unit", [((64, 64, 33), 32),
-                                       ((256, 256, 129), 32),
-                                       ((320, 320, 161), 4),
-                                       ((1024, 1024, 513), 2),
-                                       ((2048, 2048, 1025), 1)])
-def test_launch_chunks(wko, unit):
+@pytest.mark.parametrize("wko, per_warp", [((64, 64, 33), 32),
+                                           ((256, 256, 129), 32),
+                                           ((320, 320, 161), 4),
+                                           ((1024, 1024, 513), 2),
+                                           ((2048, 2048, 1025), 1)])
+def test_launch_chunks(wko, per_warp):
     """Ranges cover the tile in order; each range's scratch fits the
-    budget, and all but the last are whole warps of pairs."""
+    budget, and all but the last are whole warps of pairs. A warp holds
+    ``per_warp`` pairs at one thread a pair (W <= 256), or that many rows
+    of a pass of its one pair in the wide kernel, 32/G of them."""
     cfg = AlignConfig(W=wko[0], K=wko[1], O=wko[2])
+    wide = engine.num_words(cfg.W) > engine.MULTIWORD_MAX_NW
+    if wide:
+        assert per_warp == 32 // engine.group_size(cfg.W)
+    unit = 1 if wide else per_warp  # the wide kernel: a warp a pair
     assert engine.pairs_per_warp(cfg) == unit
     per_unit = 8 * sum(engine.scratch_words(cfg, unit))
     B = 1000
@@ -171,10 +177,15 @@ def test_launch_chunks(wko, unit):
 
 def test_wide_scratch_sizes():
     """W=512 K=512 O=257 stores words 4..7 (bits [256, 512)) of rows
-    0..512 for 256 columns: 4.2 MB a pair; the forefront is 513 columns
-    of 8 words."""
+    0..512 for 256 columns, laid out along the word group's skew (word q
+    of column i at slot i + 7-q), so 256 + 3 slots a row: 4.2 MB a pair;
+    the forefront is the 513 columns of 8 words laid out the same way,
+    513 + 7 slots, the padding below them that the kernel's last ring
+    loads read, and a slot for the row above row 0."""
     cfg = AlignConfig(W=512, K=512, O=257)
+    rows, cols, nw, stored = 513, 256, 8, 4
     r, ff = engine.scratch_words(cfg, 3)
-    assert r == 513 * 4 * 256 * 3 and ff == 513 * 8 * 3
+    assert r == rows * stored * (cols + stored - 1) * 3
+    assert ff == (engine.WIDE_FF_PAD + cols * 2 + 1 + nw - 1 + 1) * nw * 3
     assert engine.group_size(257) == 8 and engine.group_size(512) == 8
     assert engine.group_size(513) == 16 and engine.group_size(2048) == 32

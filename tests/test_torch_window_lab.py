@@ -1,5 +1,6 @@
 """The window lab's source variants of csrc/genasm_windows1.cu,
-csrc/genasm_windows.cu and csrc/genasm_fill_lab.cu.
+csrc/genasm_windows.cu, csrc/genasm_windows_wide.cu and
+csrc/genasm_fill_lab.cu.
 
 The variants are built and timed only on a card; here each one's text
 edits are checked against the kernel source as it stands, so a change to
@@ -68,6 +69,55 @@ def test_fill_lab_variant_source_applies(variant):
     group = {"g4": 4, "g16": 16}.get(variant, 8)
     assert f"constexpr int G = {group};" in got
     assert "constexpr int THREADS = 64;" in got
+
+
+@pytest.mark.parametrize("variant", tuple(window_lab.SOURCES[window_lab.WIDE][2]))
+def test_wide_variant_source_applies(variant):
+    path = os.path.join(_cuda.CSRC, _cuda.GENASM_WINDOWS_WIDE.source)
+    with open(path) as f:
+        src = f.read()
+    got = window_lab.variant_source(variant, window_lab.WIDE)
+    assert (got == src) == (variant == "full")
+    if variant != "nocs":  # nocs swaps the stream store for a plain one
+        assert len(got.splitlines()) >= len(src.splitlines())
+    knobs = {"u8": "constexpr int UNROLL = 8;",
+             "u32": "constexpr int UNROLL = 32;",
+             "rows1": "constexpr int MAX_ROWS = 1;",
+             "rows2": "constexpr int MAX_ROWS = 2;",
+             "t64": "constexpr int THREADS = 64;"}
+    if variant in knobs:
+        assert knobs[variant] in got
+    if variant == "nocs":
+        assert "__stcs(" not in got and "  *p = v;" in got
+    if variant == "clocks":
+        # three section reads, the window's start, a step count a pass,
+        # and the sums past every version's forefronts
+        assert got.count("clock64()") == 4
+        assert "cyc[3] += (unsigned long long)nblocks * UNROLL;" in got
+        assert "P.ff + nb * (W + 4 * MAX_NW) * NW" in got
+
+
+def test_wide_clocks_apply_to_the_first_version(tmp_path):
+    """--kernel_file: the clock edits take the first version's column loop
+    (one row a pass, a step a column) where this one has blocks of
+    steps."""
+    path = os.path.join(_cuda.CSRC, _cuda.GENASM_WINDOWS_WIDE.source)
+    with open(path) as f:
+        src = f.read()
+    old = src.replace("      for (int blk = 0; blk < nblocks; ++blk) {\n",
+                      "      for (int i = W - 1; i >= 0; --i) {\n")
+    assert old != src
+    (tmp_path / "k.cu").write_text(old)
+    got = window_lab.variant_source("clocks", window_lab.WIDE,
+                                    str(tmp_path / "k.cu"))
+    assert "cyc[3] += (unsigned long long)W;" in got
+    assert "nblocks * UNROLL" not in got
+    # both loops: ambiguous
+    (tmp_path / "k.cu").write_text(
+        old + "      for (int blk = 0; blk < nblocks; ++blk) {\n")
+    with pytest.raises(ValueError, match="2 of the anchors"):
+        window_lab.variant_source("clocks", window_lab.WIDE,
+                                  str(tmp_path / "k.cu"))
 
 
 def test_variant_anchor_must_match_once(monkeypatch):

@@ -1,15 +1,16 @@
-// Host harness for the lane-group code of the wide window kernel,
+// Host harness for the warp code of the wide window kernel,
 // scrooge_tpu_torch/csrc/genasm_windows_wide.cu, built by
 // tests/test_torch_wide_host.py with g++ under AddressSanitizer and UBSan
 // (g++ -I scrooge_tpu_torch/csrc).
 //
 // The shim below stands in for the card's warp primitives: a HostLanes
-// holds the value of each of the 32 threads of a warp (32/G pair groups
-// of G), the kernel's FOR_THREADS loops run its body for t = 0..31 in
-// turn, and shfl_up, shfl_from and warp_any read the whole array, so the
-// threads run in lockstep. The R and forefront scratch start filled with
-// a garbage pattern, and counts with -7, so that a read of a word the
-// kernel did not write, or a count it did not write, shows in the output.
+// holds the value of each of the 32 threads of a warp (32/G sub-groups of
+// G, the rows of a pass), the kernel's FOR_THREADS loops run its body for
+// t = 0..31 in turn, and shfl_up64, shfl_up and ballot read the whole
+// array, so the threads run in lockstep. The R and forefront scratch start
+// filled with a garbage pattern, and counts with -7, so that a read of a
+// word the kernel did not write, or a count it did not write, shows in the
+// output.
 //
 // stdin: int32 W, K, O, max_windows, B; int64 text_words_n,
 // pattern_stride; then text_words (text_words_n uint32), text_base (B
@@ -34,6 +35,16 @@ struct HostWarp {
 };
 
 using U32Lanes = HostLanes<unsigned, 32>;
+using U64Lanes = HostLanes<uint64_t, 32>;
+
+// __shfl_up_sync(mask, x, DELTA): thread t gets thread t-DELTA's x, a
+// thread t < DELTA its own
+template <int DELTA>
+inline U64Lanes shfl_up64(const HostWarp&, const U64Lanes& x) {
+  U64Lanes r;
+  for (int t = 0; t < 32; ++t) r[t] = x[t >= DELTA ? t - DELTA : t];
+  return r;
+}
 
 // __shfl_up_sync(mask, x, 1, G): thread t gets thread t-1's x within its
 // group of G, the group's first thread its own
@@ -44,22 +55,16 @@ inline U32Lanes shfl_up(const HostWarp&, const U32Lanes& x) {
   return r;
 }
 
-// __shfl_sync(mask, x, src, G): thread src of the group's x
-template <int G>
-inline U32Lanes shfl_from(const HostWarp&, const U32Lanes& x, int src) {
-  U32Lanes r;
-  for (int t = 0; t < 32; ++t) r[t] = x[(t & ~(G - 1)) + src % G];
+// __ballot_sync(mask, p): bit t is thread t's p
+inline unsigned ballot(const HostWarp&, const HostLanes<bool, 32>& p) {
+  unsigned r = 0;
+  for (int t = 0; t < 32; ++t) r |= (p[t] ? 1u : 0u) << t;
   return r;
-}
-
-inline bool warp_any(const HostWarp&, const HostLanes<bool, 32>& p) {
-  for (int t = 0; t < 32; ++t)
-    if (p[t]) return true;
-  return false;
 }
 
 inline void warp_sync(const HostWarp&) {}
 inline uint32_t load_ro(const uint32_t* p) { return *p; }
+inline void store_r(uint64_t* p, uint64_t v) { *p = v; }
 inline int first_set(unsigned x) { return __builtin_ffs((int)x); }
 
 inline uint64_t brev64(uint64_t x) {
@@ -88,20 +93,10 @@ void write_all(const std::vector<T>& v) {
   std::fwrite(v.data(), sizeof(T), v.size(), stdout);
 }
 
-// the kernel's warps, one after the other
+// the kernel's warps, one pair each, one after the other
 template <int G>
 void run(const Params& P) {
-  constexpr int PAIRS = WARP / G;
-  for (int first = 0; first < P.B; first += PAIRS) {
-    HostLanes<size_t, WARP> b;
-    HostLanes<bool, WARP> live;
-    for (int t = 0; t < WARP; ++t) {
-      const int pair = first + t / G;
-      b[t] = (size_t)(pair < P.B ? pair : P.B - 1);
-      live[t] = pair < P.B;
-    }
-    wide_warp<G>(HostWarp{0, WARP}, P, b, live);
-  }
+  for (int b = 0; b < P.B; ++b) wide_warp<G>(HostWarp{0, WARP}, P, (size_t)b);
 }
 
 }  // namespace
@@ -127,9 +122,10 @@ int main() {
     return 2;
   const int COLS = W - O + 1, NE = 2 * (W - O) + 2;
   const int NWS = NW - (O - 1 > 0 ? O - 1 : 0) / 64;
-  std::vector<uint64_t> R((size_t)(K + 1) * NWS * COLS * B,
+  std::vector<uint64_t> R((size_t)(K + 1) * NWS * (COLS + NWS - 1) * B,
                           0x5a5aa5a55a5aa5a5ull);
-  std::vector<uint64_t> ff((size_t)(W + 1) * NW * B, 0xa5a55a5aa5a55a5aull);
+  std::vector<uint64_t> ff((size_t)(FF_PAD + W + NW + 1) * NW * B,
+                           0xa5a55a5aa5a55a5aull);
   std::vector<int32_t> ed(B), failed(B), counts((size_t)maxw * B, -7);
   std::vector<int16_t> entries((size_t)maxw * NE * B, 0);
   const Params P{text_words.data(), tw_n,          text_base.data(),

@@ -89,7 +89,22 @@ Phases, one line each:
      run; then the scaling harness twice into a temporary directory, the
      mesh (1 and 2 shards at 16384 pairs a shard, or 1..N cards) and
      --distributed 2, whose CSVs must hold positive rates and card, cards
-     and processes columns that say what ran.
+     and processes columns that say what ran;
+ 12. the tile pipeline: align_reads on phase 4's dataset in 16 tiles
+     (batch_tile 1024) at 64/64/33 and 128/128/65 on the card, and at
+     64/64/33 on ["cuda:0", "cuda:0"] (every tile two shards), strings
+     then packed, and at 64/64/33 once more with the CIGARs decoded on
+     one thread (api.DECODE_THREADS = 1): every alignment must equal the
+     single-tile call's of phase 4 or 7 for the same pair, every tile
+     (shard) must launch its window kernel; each call's wall clock,
+     AlignStats stages and launches, then the same call under
+     torch.profiler for the device's busy and idle share of it
+     (profiling/pipeline.py).
+
+Beside phase 4's and 7's bound lines, a sol line gives the bound that
+profiling/model.py reckons for the bench tile from expected counts alone
+(``model.sol_estimate``); the bounds themselves come from that module's
+window_bound, fill_bound and r_floor on the plain engine's counters.
 
 Then the kernels' JSON line, the card line again, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -124,15 +139,6 @@ WIDE_REPLACES = "scrooge_tpu/ops/engine_xla.py:105"
 LAB_SOURCE = "scrooge_tpu_torch/csrc/genasm_fill_lab.cu"
 LAB_REPLACES = "tools/kernel_lab.py:107"
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-INT32_LANES_PER_SM = 64    # Hopper SM: 4 partitions x 16 INT32 units
-TB_STEP_OPS = 12           # int32 ops per traceback step: 3 bit tests
-# INT32 instructions a DP cell takes per 64-bit word of its bitvectors
-# (window_bound derives it), and a cell of row 0, which has no row above
-# (fill_bound)
-CELL_OPS_PER_WORD = 8
-ROW0_OPS_PER_WORD = 4
-
 
 def phase(name: str, **fields) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
@@ -243,52 +249,6 @@ def random_pairs(cfg, seed, dev, B=512, length=1000, rate=0.05):
     return maxw, (tw, base, torch.from_numpy(tlen).to(dev),
                   pack.pack_2bit(torch.from_numpy(pattern)).to(dev),
                   torch.from_numpy(plen).to(dev))
-
-
-def int32_ops_per_s() -> float:
-    """The card's INT32 rate: SMs x 64 INT32 lanes x the SM's max clock."""
-    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
-
-
-def window_bound(cfg, maxw, args, res, ops_rate):
-    """Least time the window engine could take on this run's inputs:
-    (ms, 'bytes' or 'operations', detail). ``res`` is the plain version's
-    result on those inputs.
-
-    Operations: every DP cell the run filled (its work counters; the
-    kernel fills the same cells, d = 0 cells counted alike) at
-    CELL_OPS_PER_WORD x NW INT32 instructions, plus TB_STEP_OPS a
-    traceback step. The cell is
-    ``(shl1(right) | pm) & shl1(topright) & shl1(top) & topright`` on NW
-    64-bit words, 2 NW 32-bit halves, and the rate counts instructions:
-    - logic: five terms take two three-input LOP3s a half, 4 NW;
-    - shifts: shl1(topright) of a cell is shl1(top) of its neighbour in
-      column i+1, so a cell makes two shifts by one; each half of a shift
-      is one funnel shift (the lowest half a plain shift), 4 NW;
-    so 8, 16, 24 and 32 instructions a cell at NW = 1..4. Bits at W and
-    above need no mask (nothing reads them), and the PM select by text
-    character, start-column selects and stores are not counted. This is
-    a count of the recurrence, not a measured instruction mix.
-    Bytes: the packed text and pattern chars read once, lengths and
-    bases, every run, count and result written once."""
-    from scrooge_tpu_torch.ops import engine
-
-    nw = engine.num_words(cfg.W)
-    cells = int(res.work[0].sum().item())
-    steps = int(res.work[1].sum().item())
-    ops = cells * CELL_OPS_PER_WORD * nw + steps * TB_STEP_OPS
-    B = int(args[4].shape[0])
-    read_chars = int(args[4].long().sum().item())
-    # text and pattern: about as many text chars are consumed as read
-    nbytes = (2 * read_chars // 4 + 16 * B
-              + 2 * int(res.counts.long().sum().item()) + 4 * maxw * B
-              + 24 * B)
-    t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
-            "bytes", dict(cells=cells, tb_steps=steps, int32_ops=ops,
-                          bytes=nbytes))
 
 
 def unrelated_pairs(cfg, seed, dev, B=512, length=1000):
@@ -419,38 +379,6 @@ def kernel_only(label, staged, n):
           max=f"{rates[-1]:.1f}")
 
 
-def fill_bound(variant, wed, n, ops_rate):
-    """Least time for NWIN windows of the fill lab on these inputs: (ms,
-    'bytes' or 'operations'). ``wed`` is the plain version's per-lane wed
-    and ``n`` each lane's n.
-
-    Operations: a lane fills rows 0..wed of a window (every lane of the
-    timed inputs hits; one that never did would fill rows up to K, and
-    counting only its row 0 keeps the bound a lower bound). Of the W+1
-    columns only those with i < n take work, min(max(n, 0), W+1) of
-    them: a start column is the constant ones << (W-m+d). Row 0 has no
-    row above, so its cell is ``shl1(right) | pm``, a shift and an OR on
-    each 32-bit half, ROW0_OPS_PER_WORD (4) INT32 instructions. A row
-    d >= 1 is the recurrence, CELL_OPS_PER_WORD (8) a cell as
-    window_bound counts it, except in noff: its row above is the
-    constant 0, so such a cell is 0 and takes none. Bytes: pmi, m and n
-    read once; wed and the per-lane sum written once, and in full R's
-    rows 0..wed (COLS words a row) once, since every window stores the
-    same R."""
-    from scrooge_tpu_torch.tools import kernel_lab as lab
-
-    wed = wed.long().cpu()
-    cols = n.long().cpu().clamp(0, lab.W + 1)
-    deep = 0 if variant == "noff" else CELL_OPS_PER_WORD
-    ops = lab.NWIN * int((cols * (ROW0_OPS_PER_WORD + wed * deep)).sum())
-    B = int(wed.numel())
-    nbytes = lab.W * B * 8 + B * (4 + 4 + 4 + 8)
-    if variant == "full":
-        nbytes += int((wed + 1).sum()) * lab.COLS * 8
-    t_ops, t_bytes = ops / ops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
 def fill_check(v, nwin, m, n, pmi):
     """The fill-lab kernel against its plain version on the same inputs:
     (plain result, max abs err over wed and the total, or the count of R
@@ -469,6 +397,7 @@ def fill_check(v, nwin, m, n, pmi):
 def fill_lab(ops_rate):
     """Phase 8: returns the kernels-line entries of the fill-lab kernel."""
     from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.profiling.model import fill_bound
     from scrooge_tpu_torch.tools import kernel_lab as lab
 
     dev = torch.device("cuda")
@@ -541,32 +470,6 @@ def captured(main, argv):
     return rc, out.getvalue()
 
 
-def trace_shares(path):
-    """From a torch.profiler chrome trace: (window-kernel launches, their
-    ms, the device's busy share, the annotated call's ms) over the
-    ``align_reads`` annotation. Busy is the union of kernel, copy and set
-    intervals on the device within the call; idle is the rest."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    span = next(e for e in events if e.get("name") == "align_reads"
-                and e.get("cat") == "user_annotation")
-    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
-    on_dev = sorted((max(float(e["ts"]), t0),
-                     min(float(e["ts"]) + float(e["dur"]), t1))
-                    for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                    and "dur" in e)
-    busy, end = 0.0, t0
-    for a, b in on_dev:
-        a = max(a, end)
-        if b > a:
-            busy, end = busy + b - a, b
-    window = [e for e in events if e.get("cat") == "kernel"
-              and "genasm_windows1_kernel" in e.get("name", "")]
-    return (len(window), sum(float(e["dur"]) for e in window) / 1e3,
-            busy / (t1 - t0), (t1 - t0) / 1e3)
-
-
 def file_path(ds, main_strs, small, dev, tmp):
     """Phase 9: the CLIs on the card, from files (see the docstring)."""
     import scrooge_tpu_torch as st
@@ -574,6 +477,7 @@ def file_path(ds, main_strs, small, dev, tmp):
     from scrooge_tpu_torch.cigar import affine_score, edits_in_cigar
     from scrooge_tpu_torch.cli import baseline_cli, tests_cli
     from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.profiling.pipeline import trace_shares
     from scrooge_tpu_torch.utils.simulate import (SimulatedDataset,
                                                   write_dataset)
 
@@ -660,7 +564,7 @@ def file_path(ds, main_strs, small, dev, tmp):
                                         f"--profile={trace_dir}"])
     total_s = time.perf_counter() - t0
     n_kernels, kernel_ms, busy, span_ms = trace_shares(
-        os.path.join(trace_dir, "trace.json"))
+        os.path.join(trace_dir, "trace.json"), "genasm_windows1_kernel")
     phase("file-path-profile", rc=rc, total_s=f"{total_s:.3f}",
           launches=sum(one.counts.values()),
           window_kernels_in_trace=n_kernels,
@@ -705,26 +609,13 @@ def file_path(ds, main_strs, small, dev, tmp):
                              "align_reads on the card")
 
 
-def r_floor(cfg, res):
-    """Bytes of R a tile must write, and their time at the memory rate:
-    every searched row's stored words (the words of bits [O-1, W) of
-    columns < COLS), the rows counted from the plain result's DP cells
-    (a row of a window with n chars of text is n+1 cells, n <= W), so a
-    floor; the kernel writes up to a pass's rows more a window."""
-    from scrooge_tpu_torch.ops import engine
-
-    rows = int(res.work[0].sum().item()) // (cfg.W + 1)
-    stored = engine.num_words(cfg.W) - max(cfg.O - 1, 0) // engine.WORD
-    nbytes = rows * stored * cfg.columns * 8
-    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
-
-
 def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
     """Phase 10 (see the docstring): returns the kernels-line entries of
     the wide kernel, at G = 8 (NW=8), 16 (NW=16) and 32 (NW=32)."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch.ops import _cuda, engine
     from scrooge_tpu_torch.profiling import kernel_time, sweep
+    from scrooge_tpu_torch.profiling.model import r_floor, window_bound
     from scrooge_tpu_torch.utils.simulate import SimulatedDataset
 
     wide = _cuda.GENASM_WINDOWS_WIDE
@@ -1084,6 +975,64 @@ def scaling_path(kind, tmp):
             raise AssertionError(f"scaling distributed rows: {rows}")
 
 
+def pipeline_path(ds, prepared, single, tmp):
+    """Phase 12 (see the docstring): align_reads in 16 tiles."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch import api
+    from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.profiling import pipeline
+
+    # (W, K, O), device, threads that decode the CIGARs (None: the API's
+    # DECODE_THREADS; 1: in order, to weigh the pool against it)
+    runs = [((64, 64, 33), "cuda", None), ((64, 64, 33), "cuda", 1),
+            ((128, 128, 65), "cuda", None),
+            ((64, 64, 33), ["cuda:0", "cuda:0"], None)]
+    threads = api.DECODE_THREADS
+    for (W, K, O), dev, decode_threads in runs:
+        cfg = st.AlignConfig(W=W, K=K, O=O, batch_tile=1024)
+        want = single[W]
+        api.DECODE_THREADS = decode_threads or threads
+        for mode, packed in (("strings", False), ("packed", True)):
+            for k in _cuda.KERNELS:
+                k.counts.clear()
+            out, stats, wall = pipeline.call(prepared, ds.reads, cfg, dev,
+                                             packed)
+            launches = {k.source: dict(k.counts) for k in _cuda.KERNELS
+                        if k.counts}
+            got = (list(zip(out.edit_distances.tolist(), packed_cigars(out)))
+                   if packed else [(a.edit_distance, a.cigar) for a in out])
+            equal = sum(g == (a.edit_distance, a.cigar)
+                        for g, a in zip(got, want))
+            _, (n_kernels, kernel_ms, busy, span_ms) = pipeline.traced_call(
+                prepared, ds.reads, cfg, dev, packed,
+                os.path.join(tmp, "trace.json"))
+            tiles = -(-len(ds.reads) // cfg.batch_tile)
+            phase("pipeline", W=W, K=K, O=O, mode=mode,
+                  device=repr(dev if isinstance(dev, str)
+                              else [str(d) for d in dev]),
+                  decode_threads=api.DECODE_THREADS,
+                  pairs=len(got), tiles=tiles,
+                  equal_to_single_tile=equal, wall_s=f"{wall:.3f}",
+                  aligns_per_s=f"{len(got) / wall:.1f}",
+                  launches=json.dumps(launches),
+                  breakdown=repr(stats.breakdown()),
+                  window_kernels_in_trace=n_kernels,
+                  window_kernel_ms_in_trace=f"{kernel_ms:.3f}",
+                  traced_call_ms=f"{span_ms:.3f}",
+                  device_busy_share=f"{busy:.4f}",
+                  device_idle_share=f"{1 - busy:.4f}")
+            if equal != len(want) or len(got) != len(want):
+                raise AssertionError(f"pipeline W={W} {mode} on {dev}: "
+                                     f"{len(want) - equal} alignments "
+                                     "differ from the single tile's")
+            shards = 1 if isinstance(dev, str) else len(dev)
+            if sum(sum(c.values()) for c in launches.values()) < \
+                    tiles * shards or n_kernels < 1:
+                raise AssertionError(f"pipeline W={W} {mode}: launches "
+                                     f"{launches}, {n_kernels} traced")
+    api.DECODE_THREADS = threads
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1092,7 +1041,7 @@ def main() -> int:
 
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch.ops import _cuda, engine
-    from scrooge_tpu_torch.profiling import kernel_time
+    from scrooge_tpu_torch.profiling import kernel_time, model
     from scrooge_tpu_torch.utils.simulate import simulate_dataset
 
     dev = torch.device("cuda")
@@ -1106,7 +1055,7 @@ def main() -> int:
     except ImportError:
         has_triton = False
     card = nvidia_smi("name,power.limit")
-    ops_rate = int32_ops_per_s()
+    ops_rate = model.int32_ops_per_s()
     phase("toolchain", torch=torch.__version__, cuda=torch.version.cuda,
           device=repr(kind), nvcc=nvcc_release(), triton=has_triton,
           int32_tops=f"{ops_rate / 1e12:.3f}")
@@ -1173,7 +1122,8 @@ def main() -> int:
     wstaged = kernel_time.stage_mapped(prepared, ds.reads, wcfg, dev)
     wide_tile = compare(wcfg, wstaged[1], wstaged[2], "wide tile")
     windows[2] = (wcfg, wstaged, wide_tile)
-    counts[2], _ = drive_path("wide-path", wcfg, ds, prepared, dev, 16, 512)
+    counts[2], wide_strs = drive_path("wide-path", wcfg, ds, prepared, dev,
+                                      16, 512)
     kernel_only("wide-kernel-only", wstaged, len(ds.reads))
     small = simulate_dataset(genome_len=200_000, num_reads=512,
                              read_len=2000, accuracy=0.95, seed=11)
@@ -1194,10 +1144,17 @@ def main() -> int:
                 else f"genasm_windows[NW={nw}]")
         if launches < 1:
             raise AssertionError(f"{name} never launched on its path")
-        bound_ms, bound_by, detail = window_bound(c, sst[1], sst[2],
-                                                  cmp["plain"], ops_rate)
+        bound_ms, bound_by, detail = model.window_bound(
+            c, sst[1], sst[2], cmp["plain"], ops_rate)
         phase("bound", kernel=name, W=c.W, bound_ms=f"{bound_ms:.6f}",
               bound_by=bound_by, **{k: v for k, v in detail.items()})
+        if c.W in (64, 128):  # the bench tile: profiling.model sol beside
+            sol = model.sol_estimate(c.W, c.K, c.O, 10000, 0.05, sst[3],
+                                     ops_rate)
+            phase("sol", kernel=name, W=c.W, B=sst[3],
+                  **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+                     for k, v in sol.items()},
+                  counted_over_expected=f"{bound_ms / sol['bound_ms']:.4f}")
         kernels.append({
             "name": name, "route": "cuda",
             "source": (WINDOWS1_SOURCE if kern is _cuda.GENASM_WINDOWS1
@@ -1225,6 +1182,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="scrooge_parallel_") as tmp:
         distributed_path(ds, main_strs, tmp)
         scaling_path(kind, tmp)
+
+    # ---- 12. the tile pipeline ----
+    with tempfile.TemporaryDirectory(prefix="scrooge_pipeline_") as tmp:
+        pipeline_path(ds, prepared, {64: main_strs, 128: wide_strs}, tmp)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -95,11 +95,18 @@ def get_ext():
     return _EXT.load(_load_ext)
 
 
-def encode_pack_strs(contents, width: int) -> np.ndarray:
+def encode_pack_strs(contents, width: int, out=None) -> np.ndarray:
     """ASCII rows -> (len(contents), ceil(width/16)) uint32 words, 2-bit
-    codes, char k of a word in bits [2k, 2k+2). ValueError on non-ACGT."""
+    codes, char k of a word in bits [2k, 2k+2). ValueError on non-ACGT.
+    ``out``: a C-contiguous uint32 array of that shape to write into (a
+    pinned staging buffer); it is returned."""
     pw = -(-width // 16)
-    out = np.empty((len(contents), pw), np.uint32)
+    if out is None:
+        out = np.empty((len(contents), pw), np.uint32)
+    elif (out.dtype != np.uint32 or out.shape != (len(contents), pw)
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be a C-contiguous uint32 array of "
+                         f"shape {(len(contents), pw)}")
     get_ext().encode_pack_into(list(contents), pw, out.ctypes.data)
     return out
 
@@ -113,15 +120,28 @@ def format_tokens(tokens: np.ndarray, totals: np.ndarray) -> List[str]:
                                    totals.ctypes.data)
 
 
-def tokens_to_runs(tokens: np.ndarray,
-                   totals: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+def tokens_to_runs(tokens: np.ndarray, totals: np.ndarray, out=None,
+                   counts=None) -> Tuple[np.ndarray, np.ndarray]:
     """CIGAR token stream (B, capT) lane-major -> (flat uint16 runs, runs
-    per lane); lane b's runs are contiguous, in lane order."""
+    per lane); lane b's runs are contiguous, in lane order. ``out`` (uint16)
+    and ``counts`` ((B,) int64), both C-contiguous, are written in place
+    when given, as scrooge_tpu.native.tokens_to_runs does: a batch decodes
+    its lane chunks one after another into one destination."""
     tokens = np.ascontiguousarray(tokens, np.uint8)
     totals = np.ascontiguousarray(totals, np.int32)
     B, capT = tokens.shape
-    out = np.empty(2 * int(np.minimum(totals, capT).sum()), np.uint16)
-    counts = np.empty(B, np.int64)
+    need = 2 * int(np.minimum(totals, capT).sum())
+    if out is None:
+        out = np.empty(need, np.uint16)
+    elif (out.dtype != np.uint16 or not out.flags.c_contiguous
+          or len(out) < need):
+        raise ValueError(f"out must be C-contiguous uint16 of at least "
+                         f"{need} entries")
+    if counts is None:
+        counts = np.empty(B, np.int64)
+    elif (counts.dtype != np.int64 or counts.shape != (B,)
+          or not counts.flags.c_contiguous):
+        raise ValueError(f"counts must be C-contiguous int64 of shape {(B,)}")
     n = get_ext().tokens_to_runs(tokens.ctypes.data, capT, B,
                                  totals.ctypes.data, out.ctypes.data,
                                  counts.ctypes.data)

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Executor, ThreadPoolExecutor, wait
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -117,14 +117,10 @@ def scratch_budgets(mesh: Mesh) -> List[Optional[int]]:
             if d.type == "cuda" else None for d in mesh]
 
 
-def run_sharded(mesh: Mesh, fn: Callable[[int, torch.device], object]
-                ) -> list:
-    """``fn(k, mesh[k])`` for every shard k, each on a host thread of its
-    own with a CUDA stream of its own current (none on the CPU); the
-    results in shard order. Each stream first waits for the work already
-    queued on its device's current stream (an uploaded genome), and after
-    the shards that stream waits for theirs. Raises the first failing
-    shard's exception, after every shard has ended."""
+def shard_streams(mesh: Mesh) -> list:
+    """A new CUDA stream for each shard on a card (None for a CPU shard),
+    each of which first waits for the work already queued on its device's
+    current stream (an uploaded genome)."""
     streams = []
     for d in mesh:
         if d.type == "cuda":
@@ -133,17 +129,46 @@ def run_sharded(mesh: Mesh, fn: Callable[[int, torch.device], object]
             streams.append(s)
         else:
             streams.append(None)
+    return streams
+
+
+def on_stream(stream):
+    """The context that makes ``stream`` current (none for None)."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+def run_sharded(mesh: Mesh, fn: Callable[[int, torch.device], object],
+                streams: Optional[list] = None,
+                pool: Optional[Executor] = None) -> list:
+    """``fn(k, mesh[k])`` for every shard k, each on a host thread of its
+    own with a CUDA stream of its own current (none on the CPU); the
+    results in shard order. Raises the first failing shard's exception,
+    after every shard has ended.
+
+    By default the streams are new ones (shard_streams), and after the
+    shards the device's current stream waits for them. A caller that
+    passes ``streams`` keeps them across calls and orders its own work
+    after them. ``pool`` runs the shards on that executor's threads (at
+    least len(mesh) of them) rather than on threads made for the call."""
+    own = streams is None
+    if own:
+        streams = shard_streams(mesh)
 
     def one(k):
-        with (torch.cuda.stream(streams[k]) if streams[k] is not None
-              else contextlib.nullcontext()):
+        with on_stream(streams[k]):
             return fn(k, mesh[k])
 
-    with ThreadPoolExecutor(max_workers=len(mesh)) as pool:
+    if pool is None:
+        with ThreadPoolExecutor(max_workers=len(mesh)) as p:
+            futures = [p.submit(one, k) for k in range(len(mesh))]
+    else:
         futures = [pool.submit(one, k) for k in range(len(mesh))]
-    for d, s in zip(mesh, streams):
-        if s is not None:
-            torch.cuda.current_stream(d).wait_stream(s)
+        wait(futures)
+    if own:
+        for d, s in zip(mesh, streams):
+            if s is not None:
+                torch.cuda.current_stream(d).wait_stream(s)
     return [f.result() for f in futures]
 
 

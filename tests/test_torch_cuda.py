@@ -276,6 +276,40 @@ def test_mesh_on_one_card_equals_one_device(cuda):
         assert packed.to_alignments() == one
 
 
+@pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65)])
+def test_tile_pipeline_on_cuda_equals_one_tile(cuda, monkeypatch, wko):
+    """Tiles of 128 (a worker thread, two streams in turn), uploads and
+    readbacks in several chunks, on one card and on two shards of it:
+    the single-tile call's alignments, strings and packed, with one
+    launch a tile (a shard) and no thread left behind."""
+    import threading
+
+    from scrooge_tpu_torch import api
+    from scrooge_tpu_torch.utils.simulate import simulate_dataset
+
+    W, K, O = wko
+    ds = simulate_dataset(genome_len=100_000, num_reads=600, read_len=1500,
+                          accuracy=0.95, seed=4)
+    one = st.align_reads(ds.genome, ds.reads,
+                         st.AlignConfig(W=W, K=K, O=O, batch_tile=1024),
+                         device="cuda:0")
+    monkeypatch.setattr(api, "UPLOAD_CHUNK_ROWS", 40)
+    monkeypatch.setattr(api, "READBACK_CHUNK_LANES", 16)
+    cfg = st.AlignConfig(W=W, K=K, O=O, batch_tile=128)  # five tiles
+    kern = engine.window_kernel(cfg)
+    nw = engine.num_words(W)
+    threads = threading.active_count()
+    for mesh, shards in (("cuda:0", 1), (["cuda:0", "cuda:0"], 2)):
+        before = kern.counts[nw]
+        got = st.align_reads(ds.genome, ds.reads, cfg, device=mesh)
+        assert got == one
+        assert kern.counts[nw] - before == 5 * shards
+        packed = st.align_reads(ds.genome, ds.reads, cfg,
+                                return_packed=True, device=mesh)
+        assert packed.to_alignments() == one
+    assert threading.active_count() == threads
+
+
 def test_mesh_engine_and_small_budgets_change_no_output(cuda):
     """align_batch_on_mesh on two shards of one card against one launch
     at W=512, and align_reads with a scratch budget that splits every

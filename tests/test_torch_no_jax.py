@@ -21,7 +21,9 @@ from scrooge_tpu_torch import baselines, cigar, io, wfa
 from scrooge_tpu_torch.cli import baseline_cli, options, tests_cli
 from scrooge_tpu_torch.ops import _cuda, engine, pack
 from scrooge_tpu_torch.parallel import distributed, mesh
-from scrooge_tpu_torch.profiling import kernel_time, scaling, sweep
+from scrooge_tpu_torch.examples import library_example, mesh_example
+from scrooge_tpu_torch.profiling import (kernel_time, model, pipeline, plots,
+                                         scaling, sweep)
 from scrooge_tpu_torch.tools import (cigar_tools, convert, kernel_lab,
                                      window_lab)
 from scrooge_tpu_torch.utils.simulate import edge_pairs
@@ -73,7 +75,22 @@ with tempfile.TemporaryDirectory() as tmp:
     assert scaling.main(["--device", "cpu", "--per_device", "8",
                          "--read_len", "100", "--reps", "1",
                          "--out", os.path.join(tmp, "s.csv")]) == 0
-assert "matplotlib" not in sys.modules  # cigar_tools.inspect loads it
+    assert model.main(["sweep", "--out", os.path.join(tmp, "a.csv")]) == 0
+    assert pipeline.main(["--device", "cpu", "--reads", "200",
+                          "--read_len", "100", "--genome_len", "5000",
+                          "--batch_tile", "128",
+                          "--out", os.path.join(tmp, "p.csv")]) == 0
+# several tiles: the worker thread and the chunked upload and readback
+texts = ["ACGTTGCA" * 12] * 300
+reads_ = ["ACGTTGCA" * 10] * 300
+tiled = st.AlignConfig(batch_tile=128)
+for device in ("cpu", ["cpu"] * 2):
+    got = st.align_pairs(texts, reads_, tiled, device=device)
+    assert [(x.edit_distance, x.cigar) for x in got] == [
+        (0, "31=31=18=")] * 300, got[:2]
+assert library_example.main(["--device", "cpu"]) == 0
+assert mesh_example.main(["--device", "cpu"]) == 0
+assert "matplotlib" not in sys.modules  # plots and cigar_tools.inspect load it
 assert tests_cli.main(["--unit_tests", "--device=cpu"]) == 0
 assert baseline_cli.main(["--simulated=2,150", "--threads=128",
                           "--algorithms=genasm_device,exact,wfa",

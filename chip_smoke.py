@@ -7,7 +7,8 @@ Phases, one line each:
      reports it (its own line);
   2. build: compile the four kernel sources from csrc/ with nvcc, one
      process each, started together; registers and spills of every
-     instantiation, and no kernel may spill;
+     instantiation (each window kernel with early termination and
+     without), and no kernel may spill;
   3. kernel against plain: the window kernel and the plain torch engine on
      the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33,
      32/32/17, 96/96/49, 128/128/65, 128/128/2 (two traceback mask words,
@@ -73,7 +74,7 @@ Phases, one line each:
      card, ``device simulated:1024:10000 --families WO --max_W 512
      --max_experiments 2`` into a temporary directory, whose CSV must hold
      W = 256 and 512, each with and without ET, at a positive rate, with
-     the engine that ran;
+     the engine that ran, each ET=False row slower than its ET=True twin;
  11. several devices (parallel/): the mesh path, align_reads on phase 4's
      tile with device= every card, or ["cuda:0", "cuda:0"] on one card
      (two shards of 8192 lanes on two streams), after one call on one
@@ -99,7 +100,19 @@ Phases, one line each:
      (shard) must launch its window kernel; each call's wall clock,
      AlignStats stages and launches, then the same call under
      torch.profiler for the device's busy and idle share of it
-     (profiling/pipeline.py).
+     (profiling/pipeline.py);
+ 13. early termination off (each kernel's instantiation with
+     engine.ET_OFF in its key, which fills every row 0..K): each window
+     kernel against its plain version with ET off, 512 x 1 kbp at W =
+     64, 128, 192 and 256, the unrelated pairs of phase 3, and 64 x 2 kbp
+     at W = 320, 512, 1024 and 2048 at a reduced K; ET on against ET off
+     on the bench tile at W=64 and W=128 and on 1,024 bench reads at
+     W=512, in turns with CUDA events, each beside its bound (the ET-off
+     bound from the ET-on plain run's count of one row's cells, times
+     K+1) and its launches; then every path of phases 4, 7 and 10 again
+     through align_reads with ET off, counts set to 0 just before: the
+     output must equal the ET-on path's and only the ET-off instantiation
+     may launch.
 
 Beside phase 4's and 7's bound lines, a sol line gives the bound that
 profiling/model.py reckons for the bench tile from expected counts alone
@@ -163,15 +176,19 @@ def nvcc_release() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """'genasm_windows_kernel<2>' from a mangled entry name: the
-    length-prefixed identifier that ends in '_kernel', and its template
-    argument."""
+    """'genasm_windows_kernel<2, true>' from a mangled entry name: the
+    length-prefixed identifier that ends in '_kernel', and its int and
+    bool template arguments."""
     for m in re.finditer(r"(?=(\d+))", mangled):
         at = m.start() + len(m.group(1))
         name = mangled[at : at + int(m.group(1))]
         if name.endswith("_kernel"):
-            tmpl = re.match(r"ILi(\d+)E", mangled[at + len(name):])
-            return name + (f"<{tmpl.group(1)}>" if tmpl else "")
+            tmpl = re.match(r"I((?:L[ib]\d+E)+)E", mangled[at + len(name):])
+            if not tmpl:
+                return name
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([ib])(\d+)E", tmpl.group(1))]
+            return f"{name}<{', '.join(args)}>"
     return mangled
 
 
@@ -283,6 +300,7 @@ def compare(cfg, maxw, args, label):
     phase("kernel-vs-plain", shape=label,
           kernel=engine.window_kernel(cfg).source, W=cfg.W,
           K=cfg.K, O=cfg.O, NW=engine.num_words(cfg.W),
+          early_termination=cfg.early_termination,
           B=int(args[4].shape[0]), maxw=maxw, kernel_ms=f"{ms:.3f}",
           plain_ms=f"{plain_ms:.3f}", max_abs_err=err, tolerance=0,
           failed_lanes=failed,
@@ -609,9 +627,11 @@ def file_path(ds, main_strs, small, dev, tmp):
                              "align_reads on the card")
 
 
-def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
+def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp, paths):
     """Phase 10 (see the docstring): returns the kernels-line entries of
-    the wide kernel, at G = 8 (NW=8), 16 (NW=16) and 32 (NW=32)."""
+    the wide kernel, at G = 8 (NW=8), 16 (NW=16) and 32 (NW=32), and the
+    W=512 tile as (cfg, staged, plain result); adds each path's (cfg,
+    dataset, prepared genome, strings) to ``paths`` under its NW."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch.ops import _cuda, engine
     from scrooge_tpu_torch.profiling import kernel_time, sweep
@@ -622,9 +642,11 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
     ptxas = ptxas_summary(wide.build_log)
     phase("wide-ptxas", source=WIDE_SOURCE, ptxas=repr(ptxas))
     for g in (8, 16, 32):
-        if not re.search(rf"genasm_windows_wide_kernel<{g}>: \d+ regs, 0 B "
-                         "spill", ptxas):
-            raise AssertionError(f"the wide kernel at G = {g}: {ptxas}")
+        for et in ("true", "false"):
+            if not re.search(rf"genasm_windows_wide_kernel<{g}, {et}>: \d+ "
+                             "regs, 0 B spill", ptxas):
+                raise AssertionError(f"the wide kernel at G = {g}, ET "
+                                     f"{et}: {ptxas}")
     for (W, K, O), B in (((257, 257, 129), 256), ((320, 320, 161), 256),
                          ((512, 512, 257), 256), ((512, 512, 0), 256),
                          ((1024, 1024, 513), 64), ((2048, 2048, 1025), 64)):
@@ -658,7 +680,9 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
     sub = SimulatedDataset(genome=ds.genome, reads=ds.reads[:1024])
     staged = kernel_time.stage_mapped(prepared, sub.reads, cfg, dev)
     tile = compare(cfg, staged[1], staged[2], "w512 path tile")
-    counts, _ = drive_path("w512-path", cfg, sub, prepared, dev, 4, 128)
+    counts, strs = drive_path("w512-path", cfg, sub, prepared, dev, 4, 128)
+    paths[8] = (cfg, sub, prepared, strs)
+    w512 = (cfg, staged, tile["plain"])
     launches = counts[wide].get(8, 0)
     if launches < 1 or any(counts[k] for k in counts if k is not wide):
         raise AssertionError(f"the W=512 path's launches: {counts}")
@@ -684,7 +708,8 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
         c = st.AlignConfig(W=W, K=K, O=O, batch_tile=128)
         sst = kernel_time.stage_mapped(sprep, sub.reads, c, dev)
         cmp = compare(c, sst[1], sst[2], "64x2kbp path tile")
-        cnt, _ = drive_path(f"wide-path-w{W}", c, sub, sprep, dev, 2, 32)
+        cnt, strs = drive_path(f"wide-path-w{W}", c, sub, sprep, dev, 2, 32)
+        paths[nw] = (c, sub, sprep, strs)
         n_launch = cnt[wide].get(nw, 0)
         if n_launch < 1 or any(cnt[k] for k in cnt if k is not wide):
             raise AssertionError(f"the W={W} path's launches: {cnt}")
@@ -718,7 +743,162 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp):
     if rc != 0 or got != {(w, et, e) for w, e in want
                           for et in ("False", "True")}:
         raise AssertionError(f"sweep rows: {rows}")
-    return kernels
+    # early termination off fills every row up to K: each W's ET=False
+    # row must be slower than its ET=True twin
+    rate = {(r["W"], r["early termination"]): float(r["aligns/second"])
+            for r in rows}
+    for w, _ in sorted(want):
+        if not rate[(w, "False")] < rate[(w, "True")]:
+            raise AssertionError(f"sweep at W={w}: ET off "
+                                 f"{rate[(w, 'False')]} aligns/s is not "
+                                 f"slower than ET on {rate[(w, 'True')]}")
+    phase("sweep-et", **{f"W{w}_off_over_on":
+                         f"{rate[(w, 'False')] / rate[(w, 'True')]:.4f}"
+                         for w, _ in sorted(want)})
+    return kernels, w512
+
+
+def window_entry(cfg, nw) -> dict:
+    """The kernels-line name, source and replaced kernel of the window
+    kernel instantiation the config launches: genasm_windows1[NW=1],
+    genasm_windows[NW=2..4] or genasm_windows_wide[NW=8/16/32] (its G),
+    with ',ET=off' without early termination."""
+    from scrooge_tpu_torch.ops import _cuda, engine
+
+    base, source, replaces = {
+        _cuda.GENASM_WINDOWS1: ("genasm_windows1", WINDOWS1_SOURCE,
+                                WINDOWS_REPLACES),
+        _cuda.GENASM_WINDOWS: ("genasm_windows", WINDOWS_SOURCE,
+                               WINDOWS_REPLACES),
+        _cuda.GENASM_WINDOWS_WIDE: ("genasm_windows_wide", WIDE_SOURCE,
+                                    WIDE_REPLACES)}[engine.window_kernel(cfg)]
+    et = "" if cfg.early_termination else ",ET=off"
+    return {"name": f"{base}[NW={nw}{et}]", "route": "cuda",
+            "source": source, "replaces": replaces}
+
+
+def et_off(tiles, paths, dev, ops_rate):
+    """Phase 13: the window kernels without early termination (the
+    instantiations with engine.ET_OFF in their key). Each against its
+    plain version with ET off at max abs err 0: 512 x 1 kbp at W = 64,
+    128, 192 and 256 (K = W), the unrelated pairs of phase 3, and 64 x 2
+    kbp at W = 320, 512, 1024 and 2048 at a reduced K; then ET on against
+    ET off on ``tiles`` (name -> (cfg, staged, plain ET-on result)), in
+    turns, CUDA events, each beside its bound: the ET-off bound counts
+    K+1 rows of every window from the ET-on plain run's count of one
+    row's cells (work[2]), so plain never runs with ET off on a full
+    tile; then each path of ``paths`` (NW -> cfg, dataset, prepared
+    genome, ET-on strings) again through align_reads with ET off, the
+    counts set to 0 just before: its output must equal the ET-on path's
+    and only the ET-off instantiation may launch. Returns the
+    kernels-line entries of the ET-off instantiations."""
+    import dataclasses
+
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch.ops import _cuda, engine
+    from scrooge_tpu_torch.profiling import kernel_time, model
+
+    t_phase = time.perf_counter()
+    no_et = lambda c: dataclasses.replace(c, early_termination=False)
+    checks = {}  # NW -> (cfg, maxw, args, compare result) of its shape
+    for W, K, O in ((64, 64, 33), (128, 128, 65), (192, 192, 97),
+                    (256, 256, 129)):
+        cfg = st.AlignConfig(W=W, K=K, O=O, early_termination=False)
+        maxw, args = random_pairs(cfg, W, dev)
+        checks[engine.num_words(W)] = (cfg, maxw, args, compare(
+            cfg, maxw, args, "512x1kbp"))
+    for W, K, O in ((64, 64, 33), (64, 16, 33), (128, 128, 65),
+                    (128, 16, 65)):
+        cfg = st.AlignConfig(W=W, K=K, O=O, early_termination=False)
+        maxw, args = unrelated_pairs(cfg, 100 + K, dev)
+        want = compare(cfg, maxw, args, "512x1kbp-unrelated")["plain"]
+        fail_tb = int((want.failed & engine.FAIL_TB != 0).sum().item())
+        if (K == 16) != (fail_tb > 0):
+            raise AssertionError(f"unrelated pairs at W={W} K={K} ET off: "
+                                 f"{fail_tb} FAIL_TB lanes")
+    for (W, K, O), nw in (((320, 64, 161), None), ((512, 64, 257), 8),
+                          ((1024, 128, 513), 16), ((2048, 192, 1025), 32)):
+        cfg = st.AlignConfig(W=W, K=K, O=O, early_termination=False)
+        maxw, args = random_pairs(cfg, W + O, dev, B=64, length=2000)
+        got = compare(cfg, maxw, args, "64x2kbp")
+        if nw:
+            checks[nw] = (cfg, maxw, args, got)
+
+    # ET on against ET off, in turns (on, off, off, on)
+    for name, (cfg, staged, plain) in tiles.items():
+        off = (no_et(cfg),) + tuple(staged[1:])
+        kern = engine.window_kernel(cfg)
+        keys = {True: engine.kernel_key(cfg), False: engine.kernel_key(off[0])}
+        kern.counts.clear()
+        torch.cuda.synchronize()
+        ms = {True: [], False: []}
+        for et in (True, False, False, True):
+            ms[et] += kernel_time.engine_ms(staged if et else off, reps=3,
+                                            groups=2)
+        bound = {et: model.window_bound(c, staged[1], staged[2], plain,
+                                        ops_rate)
+                 for et, c in ((True, cfg), (False, off[0]))}
+        med = {et: sorted(v)[len(v) // 2] for et, v in ms.items()}
+        phase("et-ablation", shape=name, W=cfg.W, K=cfg.K, O=cfg.O,
+              B=staged[3], kernel=kern.source,
+              ms_on=" ".join(f"{x:.3f}" for x in ms[True]),
+              ms_off=" ".join(f"{x:.3f}" for x in ms[False]),
+              off_over_on=f"{med[False] / med[True]:.4f}",
+              bound_ms_on=f"{bound[True][0]:.6f}",
+              bound_ms_off=f"{bound[False][0]:.6f}",
+              bound_by_off=bound[False][1],
+              bound_off_over_on=f"{bound[False][0] / bound[True][0]:.4f}",
+              cells_on=bound[True][2]["cells"],
+              cells_off=bound[False][2]["cells"],
+              bound_method="ET off: (K+1) x one row's cells over the "
+                           "windows (work[2]) of the ET-on plain run",
+              launches_on=kern.counts[keys[True]],
+              launches_off=kern.counts[keys[False]])
+        if not (kern.counts[keys[True]] and kern.counts[keys[False]]):
+            raise AssertionError(f"{name}: launches {dict(kern.counts)}")
+        if not med[False] > med[True]:
+            raise AssertionError(f"{name}: ET off is not slower than on")
+
+    # every path again with ET off, through the public API
+    window_kernels = (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS,
+                      _cuda.GENASM_WINDOWS_WIDE)
+    entries = []
+    for nw, (cfg, ds, prepared, want) in sorted(paths.items()):
+        cfg = no_et(cfg)
+        kern, key = engine.window_kernel(cfg), engine.kernel_key(cfg)
+        for k in window_kernels:
+            k.counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strs = st.align_reads(prepared, ds.reads, cfg, device=dev)
+        wall = time.perf_counter() - t0
+        counts = {k.source: dict(k.counts) for k in window_kernels
+                  if k.counts}
+        launches = kern.counts[key]
+        equal = sum((a.edit_distance, a.cigar) == (b.edit_distance, b.cigar)
+                    for a, b in zip(strs, want))
+        phase("et-off-path", W=cfg.W, K=cfg.K, O=cfg.O, pairs=len(strs),
+              wall_s=f"{wall:.3f}", equal_to_et_on=equal,
+              launches=json.dumps(counts))
+        if equal != len(want) or len(strs) != len(want):
+            raise AssertionError(f"ET off at W={cfg.W}: {len(want) - equal}"
+                                 " alignments differ from ET on")
+        if launches < 1 or counts != {kern.source: {key: launches}}:
+            raise AssertionError(f"ET off at W={cfg.W}: launches {counts}")
+        c, maxw, args, cmp = checks[nw]
+        bound_ms, bound_by, detail = model.window_bound(c, maxw, args,
+                                                        cmp["plain"],
+                                                        ops_rate)
+        entry = window_entry(c, nw)
+        phase("bound", kernel=entry["name"], W=c.W, K=c.K,
+              bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, **detail)
+        entries.append({
+            **entry, "launches": launches, "max_abs_err": cmp["max_abs_err"],
+            "ms": cmp["ms"], "plain_ms": cmp["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": f"W={c.W} K={c.K} O={c.O} B={int(args[4].shape[0])}"})
+    phase("et-off", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return entries
 
 
 def mesh_path(ds, prepared, main_strs, cfg):
@@ -1099,11 +1279,15 @@ def main() -> int:
           seconds=f"{time.perf_counter() - t0:.2f}")
     main_tile = compare(cfg, staged[1], staged[2], "main-path tile")
     windows = {1: (cfg, staged, main_tile)}
+    # NW -> (cfg, dataset, prepared genome, strings) of each path with
+    # early termination, which phase 13 runs again without it
+    paths = {}
 
     # ---- 4. main path ----
     counts = {}
     counts[1], main_strs = drive_path("main-path", cfg, ds, prepared, dev, 16,
                                       512)
+    paths[1] = (cfg, ds, prepared, main_strs)
     if sum(counts[1][_cuda.GENASM_WINDOWS].values()) != 0:
         raise AssertionError("the main path launched the multiword kernel")
 
@@ -1124,6 +1308,7 @@ def main() -> int:
     windows[2] = (wcfg, wstaged, wide_tile)
     counts[2], wide_strs = drive_path("wide-path", wcfg, ds, prepared, dev,
                                       16, 512)
+    paths[2] = (wcfg, ds, prepared, wide_strs)
     kernel_only("wide-kernel-only", wstaged, len(ds.reads))
     small = simulate_dataset(genome_len=200_000, num_reads=512,
                              read_len=2000, accuracy=0.95, seed=11)
@@ -1132,16 +1317,17 @@ def main() -> int:
         c = st.AlignConfig(W=W, K=K, O=O, batch_tile=512)
         sst = kernel_time.stage_mapped(sprep, small.reads, c, dev)
         windows[nw] = (c, sst, compare(c, sst[1], sst[2], "512x2kbp"))
-        counts[nw], _ = drive_path(f"wide-path-w{W}", c, small, sprep, dev,
-                                   4, 128)
+        counts[nw], strs = drive_path(f"wide-path-w{W}", c, small, sprep,
+                                      dev, 4, 128)
+        paths[nw] = (c, small, sprep, strs)
 
     kernels = []
     rows = [(nw, engine.window_kernel(c), c, sst, cmp, counts[nw])
             for nw, (c, sst, cmp) in sorted(windows.items())]
     for nw, kern, c, sst, cmp, cnt in rows:
         launches = cnt[kern].get(nw, 0)
-        name = ("genasm_windows1[NW=1]" if kern is _cuda.GENASM_WINDOWS1
-                else f"genasm_windows[NW={nw}]")
+        entry = window_entry(c, nw)
+        name = entry["name"]
         if launches < 1:
             raise AssertionError(f"{name} never launched on its path")
         bound_ms, bound_by, detail = model.window_bound(
@@ -1156,11 +1342,7 @@ def main() -> int:
                      for k, v in sol.items()},
                   counted_over_expected=f"{bound_ms / sol['bound_ms']:.4f}")
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": (WINDOWS1_SOURCE if kern is _cuda.GENASM_WINDOWS1
-                       else WINDOWS_SOURCE),
-            "replaces": WINDOWS_REPLACES,
-            "launches": launches, "max_abs_err": cmp["max_abs_err"],
+            **entry, "launches": launches, "max_abs_err": cmp["max_abs_err"],
             "ms": cmp["ms"], "plain_ms": cmp["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": f"W={c.W} K={c.K} O={c.O} B={sst[3]}"})
@@ -1174,8 +1356,9 @@ def main() -> int:
 
     # ---- 10. windows wider than 256 ----
     with tempfile.TemporaryDirectory(prefix="scrooge_wide_") as tmp:
-        kernels += wide_windows(ds, prepared, small, sprep, dev, ops_rate,
-                                tmp)
+        wide_kernels, w512 = wide_windows(ds, prepared, small, sprep, dev,
+                                          ops_rate, tmp, paths)
+        kernels += wide_kernels
 
     # ---- 11. several devices ----
     mesh_path(ds, prepared, main_strs, cfg)
@@ -1186,6 +1369,12 @@ def main() -> int:
     # ---- 12. the tile pipeline ----
     with tempfile.TemporaryDirectory(prefix="scrooge_pipeline_") as tmp:
         pipeline_path(ds, prepared, {64: main_strs, 128: wide_strs}, tmp)
+
+    # ---- 13. early termination off ----
+    tiles = {"bench tile W=64": (cfg, staged, main_tile["plain"]),
+             "bench tile W=128": (wcfg, wstaged, wide_tile["plain"]),
+             "1024 bench reads W=512": w512}
+    kernels += et_off(tiles, paths, dev, ops_rate)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

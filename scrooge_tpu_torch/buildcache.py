@@ -4,7 +4,8 @@ The port's CUDA kernels (nvcc) and native host helpers (g++) are built at
 first use into ``scrooge_tpu_torch/_build/``, under a name keyed by a hash
 of the source, the compiler flags and the machine type, so an edit or a
 new flag builds anew and a checkout never loads a stale library. Nothing
-is built at import time.
+is built at import time. A source's headers are passed as ``deps`` and
+hashed with it.
 """
 
 from __future__ import annotations
@@ -20,14 +21,19 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def compile_once(source: str, compiler: str, flags: Sequence[str],
-                 timeout: int = 900) -> Tuple[str, str]:
-    """(path of the built library, the compiler's output). The output is
-    kept beside the library (``.log``) and read back when the library was
+                 timeout: int = 900,
+                 deps: Sequence[str] = ()) -> Tuple[str, str]:
+    """(path of the built library, the compiler's output). ``deps`` are
+    the files the source includes, hashed with it. The output is kept
+    beside the library (``.log``) and read back when the library was
     built before, empty where that file is missing. Raises RuntimeError
     when the compiler cannot be run or fails; there is no fallback."""
-    with open(source, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(
-            (*flags, platform.machine())).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in (source, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join((*flags, platform.machine())).encode())
+    key = h.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(BUILD_DIR, f"{stem}-{key}.so")
     if os.path.exists(so):

@@ -17,7 +17,9 @@ genasm_cpu.cpp:1-35) are runtime fields of a frozen, hashable dataclass:
    layout only; outputs are bit-identical either way. The CUDA kernel
    always stores entries with DENT columns; the scalar oracle honours both.
  - ``early_termination`` (ET) stops the d-loop at the first row whose
-   column-0 entry signals a full-pattern match. Output-invariant.
+   column-0 entry signals a full-pattern match; without it every window
+   fills rows 0..K. Output-invariant. The plain engine and every CUDA
+   kernel honour it (the kernels as a template parameter).
 
 ``batch_tile`` is the number of pairs per engine call. ``backend``,
 ``tb_cap_override``, ``retry_escalation`` and ``margin_override`` are the

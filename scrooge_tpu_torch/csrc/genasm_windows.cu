@@ -63,9 +63,20 @@
 // ff_cols(W) columns of NW words, [lane / 32][col][word][lane % 32]; a
 // warp's 32 lanes store one value as 256 contiguous bytes;
 // entries[w][e][b] = op << 12 | count, counts[w][b] runs in window w.
+//
+// Early termination is the template parameter ET, as in
+// genasm_windows1.cu: without it every window fills rows 0..K (and K+1
+// when K is even) and wed stays the first row that hits.
+//
+// The kernel also compiles as host C++ (tests/windows_host.cpp, under
+// AddressSanitizer and UBSan), as genasm_windows1.cu does.
 
 #include <cstdint>
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
+
+#include "genasm_windows_common.cuh"
 
 namespace {
 
@@ -73,6 +84,7 @@ constexpr int OP_EQ = 0, OP_X = 1, OP_I = 2, OP_D = 3, OP_NONE = 4;
 constexpr int FAIL_TB = 1, FAIL_STALL = 2, FAIL_INCOMPLETE = 8;
 constexpr int THREADS = 64;
 constexpr int LB = 32;  // lanes of an R or forefront block
+constexpr int ET_OFF = 1 << 8;  // the key's flag: no early termination
 
 // forefront columns per fill batch: the batch in hand and the prefetched
 // one take 2 CHF NW registers of 64 bits, so CHF shrinks as NW grows (at
@@ -93,10 +105,7 @@ __host__ __device__ constexpr int tb_batch() {
 // forefront columns: 0..W, and the top fill batch's columns above W
 __host__ __device__ constexpr int ff_cols(int W) { return W + 17; }
 
-// bits [0, k), for any k: empty for k <= 0, all for k >= 64
-__device__ __forceinline__ uint64_t low_bits(int k) {
-  return k <= 0 ? 0ull : k >= 64 ? ~0ull : (1ull << k) - 1ull;
-}
+// bits [0, k) of 32, for any k: empty for k <= 0, all for k >= 32
 __device__ __forceinline__ unsigned low_bits32(int k) {
   return k <= 0 ? 0u : k >= 32 ? ~0u : (1u << k) - 1u;
 }
@@ -127,40 +136,6 @@ __device__ __forceinline__ uint64_t pick(const uint64_t (&v)[N], int k) {
 #pragma unroll
   for (int q = 1; q < N; ++q) x = q == k ? v[q] : x;
   return x;
-}
-
-// 32 TW chars from char g of a packed buffer of nwords >= 1 words, 32 a
-// 64-bit register: char k in bits [2(k % 32), +2) of t[k / 32]. Only the
-// words that cover the first nchars chars are loaded; a word past the
-// buffer's end reads as its last word, and the chars it would give are
-// never used.
-template <int TW>
-__device__ __forceinline__ void load_chars(const uint32_t* __restrict__ words,
-                                           int64_t nwords, int64_t g,
-                                           int nchars, uint64_t (&t)[TW]) {
-  const int64_t w0 = g >> 4;
-  const unsigned sh = (unsigned)(g & 15) * 2u;  // < 32
-  const int nload = (nchars + 15) / 16 + 1;
-  uint32_t x[2 * TW + 1];
-#pragma unroll
-  for (int k = 0; k <= 2 * TW; ++k) {
-    const int64_t at = w0 + k < nwords ? w0 + k : nwords - 1;
-    x[k] = k < nload ? __ldg(words + at) : 0u;
-  }
-#pragma unroll
-  for (int q = 0; q < TW; ++q)
-    t[q] = (uint64_t)__funnelshift_r(x[2 * q], x[2 * q + 1], sh) |
-           ((uint64_t)__funnelshift_r(x[2 * q + 1], x[2 * q + 2], sh) << 32);
-}
-
-// bit k of the result = bit 2k of x
-__device__ __forceinline__ uint64_t even_bits(uint64_t x) {
-  x &= 0x5555555555555555ull;
-  x = (x | (x >> 1)) & 0x3333333333333333ull;
-  x = (x | (x >> 2)) & 0x0f0f0f0f0f0f0f0full;
-  x = (x | (x >> 4)) & 0x00ff00ff00ff00ffull;
-  x = (x | (x >> 8)) & 0x0000ffff0000ffffull;
-  return (x | (x >> 16)) & 0x00000000ffffffffull;
 }
 
 // pattern masks, MSB-aligned: zero at bit W-1-j where pattern[j] == c for
@@ -313,7 +288,7 @@ __device__ __forceinline__ void fill_pair(
   b0 = b[NW - 1];
 }
 
-template <int NW>
+template <int NW, bool ET>
 __global__ void __launch_bounds__(THREADS) genasm_windows_kernel(
     const uint32_t* __restrict__ text_words, int64_t text_words_n,
     const int64_t* __restrict__ text_base,
@@ -374,12 +349,15 @@ __global__ void __launch_bounds__(THREADS) genasm_windows_kernel(
                           rl + row_stride, a0, b0);
       if (((a0 >> probe) & 1ull) == 0) wed = 0;
       else if (((b0 >> probe) & 1ull) == 0) wed = 1;  // K >= 1
-      for (int d = 2; wed < 0 && d <= K; d += 2) {
+      // without ET the rows after the first hit are filled all the same
+      for (int d = 2; (!ET || wed < 0) && d <= K; d += 2) {
         uint64_t* __restrict__ ra = rl + (size_t)d * row_stride;
         fill_pair<NW, false>(fl, t, pm, W, s, n, d, COLS, FTW, ra,
                              ra + row_stride, a0, b0);
-        if (((a0 >> probe) & 1ull) == 0) wed = d;
-        else if (d + 1 <= K && ((b0 >> probe) & 1ull) == 0) wed = d + 1;
+        if (ET || wed < 0) {
+          if (((a0 >> probe) & 1ull) == 0) wed = d;
+          else if (d + 1 <= K && ((b0 >> probe) & 1ull) == 0) wed = d + 1;
+        }
       }
 
       if (wed < 0) {
@@ -502,7 +480,8 @@ __global__ void __launch_bounds__(THREADS) genasm_windows_kernel(
   failed_out[b] = failed;
 }
 
-template <int NW>
+#ifdef __CUDACC__
+template <int NW, bool ET>
 int launch(const void* text_words, int64_t text_words_n,
            const void* text_base, const void* text_len,
            const void* pattern_words, int64_t pattern_stride,
@@ -510,7 +489,7 @@ int launch(const void* text_words, int64_t text_words_n,
            int max_windows, void* R, void* ff, void* ed, void* failed,
            void* entries, void* counts, cudaStream_t stream) {
   const dim3 grid((unsigned)((B + THREADS - 1) / THREADS));
-  genasm_windows_kernel<NW><<<grid, THREADS, 0, stream>>>(
+  genasm_windows_kernel<NW, ET><<<grid, THREADS, 0, stream>>>(
       (const uint32_t*)text_words, text_words_n, (const int64_t*)text_base,
       (const int32_t*)text_len, (const uint32_t*)pattern_words,
       pattern_stride, (const int32_t*)pattern_len, B, W, K, O, max_windows,
@@ -518,35 +497,32 @@ int launch(const void* text_words, int64_t text_words_n,
       (int16_t*)entries, (int32_t*)counts);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // namespace
 
-// nw must be ceil(W/64), 2..4 (genasm_windows1.cu takes one word);
-// returns -1 for arguments the kernel does not take, else the launch's
-// cudaGetLastError()
+#ifdef __CUDACC__
+// key: the words per bitvector, ceil(W/64) in 2..4 (genasm_windows1.cu
+// takes one word), with ET_OFF set for the instantiation without early
+// termination; returns -1 for arguments the kernel does not take, else
+// the launch's cudaGetLastError()
 extern "C" int genasm_windows_launch(
-    int nw, const void* text_words, int64_t text_words_n,
+    int key, const void* text_words, int64_t text_words_n,
     const void* text_base, const void* text_len, const void* pattern_words,
     int64_t pattern_stride, const void* pattern_len, int B, int W, int K,
     int O, int max_windows, void* R, void* ff, void* ed, void* failed,
     void* entries, void* counts, void* stream) {
+  const int nw = key & ~ET_OFF;
   if (nw < 2 || nw > 4 || nw != (W + 63) / 64 || O < 0 || O >= W || K < 1 ||
       text_words_n < 0 || pattern_stride < 0 || max_windows < 0)
     return -1;
   if (B <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (nw) {
-    case 2: return launch<2>(text_words, text_words_n, text_base, text_len,
-                             pattern_words, pattern_stride, pattern_len, B,
-                             W, K, O, max_windows, R, ff, ed, failed,
-                             entries, counts, s);
-    case 3: return launch<3>(text_words, text_words_n, text_base, text_len,
-                             pattern_words, pattern_stride, pattern_len, B,
-                             W, K, O, max_windows, R, ff, ed, failed,
-                             entries, counts, s);
-    default: return launch<4>(text_words, text_words_n, text_base, text_len,
-                              pattern_words, pattern_stride, pattern_len, B,
-                              W, K, O, max_windows, R, ff, ed, failed,
-                              entries, counts, s);
-  }
+  const bool et = !(key & ET_OFF);
+  auto* const fn = nw == 2 ? (et ? &launch<2, true> : &launch<2, false>)
+                 : nw == 3 ? (et ? &launch<3, true> : &launch<3, false>)
+                           : (et ? &launch<4, true> : &launch<4, false>);
+  return fn(text_words, text_words_n, text_base, text_len, pattern_words,
+            pattern_stride, pattern_len, B, W, K, O, max_windows, R, ff, ed,
+            failed, entries, counts, (cudaStream_t)stream);
 }
+#endif

@@ -54,9 +54,24 @@
 // column's offset in its row is a compile-time constant, an immediate of
 // the store;
 // entries[w][e][b] = op << 12 | count, counts[w][b] runs in window w.
+//
+// Early termination is the template parameter ET (the reference's
+// EARLY_TERMINATION, engine_pallas.py:640-646): with it a pair's fill
+// stops at the row pair that holds its first hit; without it every
+// window fills rows 0..K (and K+1 when K is even), and wed stays the
+// first row that hits. The traceback reads rows < wed either way, so the
+// output is the same.
+//
+// The kernel also compiles as host C++: tests/windows_host.cpp defines
+// the CUDA keywords and intrinsics it uses, runs each thread's body in
+// turn and checks it under AddressSanitizer and UBSan.
 
 #include <cstdint>
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
+
+#include "genasm_windows_common.cuh"
 
 namespace {
 
@@ -66,42 +81,7 @@ constexpr int THREADS = 64;
 constexpr int MAXC = 65;  // forefront columns i = 0..64
 constexpr int CH = 8;     // traceback offsets per batch of R loads
 constexpr int LB = 32;    // lanes of an R block, the column stride
-
-// bits [0, k), for any k: empty for k <= 0, all for k >= 64
-__device__ __forceinline__ uint64_t low_bits(int k) {
-  return k <= 0 ? 0ull : k >= 64 ? ~0ull : (1ull << k) - 1ull;
-}
-
-// 64 chars from char g of a packed buffer of nwords >= 1 words: chars
-// 0-31 in lo, 32-63 in hi, 2 bits each. Words past the buffer's end read
-// as its last word; the chars they would give are never used.
-__device__ __forceinline__ void load_chars(const uint32_t* __restrict__ words,
-                                           int64_t nwords, int64_t g,
-                                           uint64_t& lo, uint64_t& hi) {
-  const int64_t w0 = g >> 4;
-  const unsigned sh = (unsigned)(g & 15) * 2u;  // < 32
-  uint32_t x[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int64_t at = w0 + k < nwords ? w0 + k : nwords - 1;
-    x[k] = __ldg(words + at);
-  }
-  uint32_t y[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) y[k] = __funnelshift_r(x[k], x[k + 1], sh);
-  lo = (uint64_t)y[0] | ((uint64_t)y[1] << 32);
-  hi = (uint64_t)y[2] | ((uint64_t)y[3] << 32);
-}
-
-// bit k of the result = bit 2k of x
-__device__ __forceinline__ uint64_t even_bits(uint64_t x) {
-  x &= 0x5555555555555555ull;
-  x = (x | (x >> 1)) & 0x3333333333333333ull;
-  x = (x | (x >> 2)) & 0x0f0f0f0f0f0f0f0full;
-  x = (x | (x >> 4)) & 0x00ff00ff00ff00ffull;
-  x = (x | (x >> 8)) & 0x0000ffff0000ffffull;
-  return (x | (x >> 16)) & 0x00000000ffffffffull;
-}
+constexpr int ET_OFF = 1 << 8;  // the key's flag: no early termination
 
 // pattern masks (pyref._pattern_masks): zero at bit m-1-j where
 // pattern[j] == c, ones elsewhere in the W bits; 1 <= m <= 64
@@ -200,6 +180,7 @@ __device__ __forceinline__ void fill_pair(uint64_t (&f)[MAXC], uint64_t t0,
   }
 }
 
+template <bool ET>
 __global__ void __launch_bounds__(THREADS) genasm_windows1_kernel(
     const uint32_t* __restrict__ text_words, int64_t text_words_n,
     const int64_t* __restrict__ text_base,
@@ -240,11 +221,13 @@ __global__ void __launch_bounds__(THREADS) genasm_windows1_kernel(
       const int n = max(0, min(W, tlen - ref_idx));
 
       // ---- (a) window set-up from packed words ----
-      uint64_t p0, p1, t0 = 0, t1 = 0;
-      load_chars(pattern_words, pattern_words_n, pbase + read_idx, p0, p1);
-      if (n > 0) load_chars(text_words, text_words_n, tbase + ref_idx, t0, t1);
+      uint64_t p[2], t[2] = {0, 0};
+      load_chars<2>(pattern_words, pattern_words_n, pbase + read_idx, 64, p);
+      if (n > 0)
+        load_chars<2>(text_words, text_words_n, tbase + ref_idx, 64, t);
+      const uint64_t t0 = t[0], t1 = t[1];
       uint64_t pm[4];
-      pattern_masks(p0, p1, m, full, pm);
+      pattern_masks(p[0], p[1], m, full, pm);
 
       // ---- (b) DP fill (pyref.genasm_dc), two rows a pass ----
       int wed = -1;
@@ -253,11 +236,14 @@ __global__ void __launch_bounds__(THREADS) genasm_windows1_kernel(
       const int probe = m - 1;
       if (((a0 >> probe) & 1ull) == 0) wed = 0;
       else if (((b0 >> probe) & 1ull) == 0) wed = 1;  // K >= 1
-      for (int d = 2; wed < 0 && d <= K; d += 2) {
+      // without ET the rows after the first hit are filled all the same
+      for (int d = 2; (!ET || wed < 0) && d <= K; d += 2) {
         fill_pair<false>(f, t0, t1, pm, full, n, d, COLS,
                          rl + (size_t)d * row_stride, a0, b0);
-        if (((a0 >> probe) & 1ull) == 0) wed = d;
-        else if (d + 1 <= K && ((b0 >> probe) & 1ull) == 0) wed = d + 1;
+        if (ET || wed < 0) {
+          if (((a0 >> probe) & 1ull) == 0) wed = d;
+          else if (d + 1 <= K && ((b0 >> probe) & 1ull) == 0) wed = d + 1;
+        }
       }
 
       if (wed < 0) {
@@ -371,22 +357,16 @@ __global__ void __launch_bounds__(THREADS) genasm_windows1_kernel(
   failed_out[b] = failed;
 }
 
-}  // namespace
-
-// nw must be 1 (one 64-bit word, W <= 64); returns -1 for arguments the
-// kernel does not take, else the launch's cudaGetLastError()
-extern "C" int genasm_windows1_launch(
-    int nw, const void* text_words, int64_t text_words_n,
-    const void* text_base, const void* text_len, const void* pattern_words,
-    int64_t pattern_stride, const void* pattern_len, int B, int W, int K,
-    int O, int max_windows, void* R, void* ed, void* failed, void* entries,
-    void* counts, void* stream) {
-  if (nw != 1 || W < 2 || W > 64 || O < 0 || O >= W || K < 1 ||
-      text_words_n < 0 || pattern_stride < 0 || max_windows < 0)
-    return -1;
-  if (B <= 0) return 0;
+#ifdef __CUDACC__
+template <bool ET>
+int launch(const void* text_words, int64_t text_words_n,
+           const void* text_base, const void* text_len,
+           const void* pattern_words, int64_t pattern_stride,
+           const void* pattern_len, int B, int W, int K, int O,
+           int max_windows, void* R, void* ed, void* failed, void* entries,
+           void* counts, cudaStream_t stream) {
   const dim3 grid((unsigned)((B + THREADS - 1) / THREADS));
-  genasm_windows1_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  genasm_windows1_kernel<ET><<<grid, THREADS, 0, stream>>>(
       (const uint32_t*)text_words, text_words_n, (const int64_t*)text_base,
       (const int32_t*)text_len, (const uint32_t*)pattern_words,
       pattern_stride, (const int32_t*)pattern_len, B, W, K, O, max_windows,
@@ -394,3 +374,28 @@ extern "C" int genasm_windows1_launch(
       (int32_t*)counts);
   return (int)cudaGetLastError();
 }
+#endif
+
+}  // namespace
+
+#ifdef __CUDACC__
+// key: the words per bitvector, which must be 1 (W <= 64), with ET_OFF
+// set for the instantiation without early termination; returns -1 for
+// arguments the kernel does not take, else the launch's cudaGetLastError()
+extern "C" int genasm_windows1_launch(
+    int key, const void* text_words, int64_t text_words_n,
+    const void* text_base, const void* text_len, const void* pattern_words,
+    int64_t pattern_stride, const void* pattern_len, int B, int W, int K,
+    int O, int max_windows, void* R, void* ed, void* failed, void* entries,
+    void* counts, void* stream) {
+  const int nw = key & ~ET_OFF;
+  if (nw != 1 || W < 2 || W > 64 || O < 0 || O >= W || K < 1 ||
+      text_words_n < 0 || pattern_stride < 0 || max_windows < 0)
+    return -1;
+  if (B <= 0) return 0;
+  auto* const fn = key & ET_OFF ? &launch<false> : &launch<true>;
+  return fn(text_words, text_words_n, text_base, text_len, pattern_words,
+            pattern_stride, pattern_len, B, W, K, O, max_windows, R, ed,
+            failed, entries, counts, (cudaStream_t)stream);
+}
+#endif

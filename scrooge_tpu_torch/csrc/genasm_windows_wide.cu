@@ -65,6 +65,11 @@
 //     the warp, so each runs it on the same words (the loads coalesce into
 //     one) and thread 0 writes the runs.
 //
+// Early termination is the template parameter ET, as in the other two
+// window kernels: with it a pair's passes stop at the pass that holds its
+// first hit; without it they run on until row K, and wed stays the first
+// row that hits (a later pass's hits do not move it).
+//
 // Every shuffle and ballot takes the whole warp with a constant mask, and
 // a step has no branch: a thread computes at every step, inside its row
 // or not, and its stores are predicated on the column. A warp past the
@@ -96,6 +101,7 @@ constexpr int MAX_ROWS = 4;  // rows a pass at most
 constexpr int UNROLL = 16;   // steps a block: the forefront ring's depth
 constexpr int LAG = 2;       // columns a row runs behind the row above
 constexpr int TB_CH = 8;     // traceback offsets a batch of R loads
+constexpr int ET_OFF = 1 << 8;  // the key's flag: no early termination
 // forefront slots below column 0: the ring's loads run past the row by up
 // to (rows a pass - 1) * LAG + 2 * UNROLL steps (engine.WIDE_FF_PAD)
 constexpr int FF_PAD = 72;
@@ -276,7 +282,7 @@ LANE_FN void pattern_planes(const uint32_t* __restrict__ words,
 
 // Every window of pair b, on the warp's 32 threads: rows of a pass by
 // sub-group (t / G), words by thread (t % G).
-template <int G>
+template <int G, bool ET>
 LANE_FN void wide_warp(const Warp& w, const Params& P, size_t b) {
   constexpr int RP = WARP / G < MAX_ROWS ? WARP / G : MAX_ROWS;
   const int W = P.W, K = P.K, O = P.O;
@@ -335,7 +341,7 @@ LANE_FN void wide_warp(const Warp& w, const Params& P, size_t b) {
 
     // ---- DP fill (pyref.genasm_dc), RP rows a pass ----
     int wed = -1;
-    for (int d0 = 0; d0 <= K && wed < 0; d0 += RP) {
+    for (int d0 = 0; d0 <= K && (!ET || wed < 0); d0 += RP) {
       // this pass's row of each thread: c0 its column at step 0, the
       // start column's value, where its cells go, and the carry into its
       // word 0 (ones below bit 0 in the row above row 0 when s = 0).
@@ -447,7 +453,7 @@ LANE_FN void wide_warp(const Warp& w, const Params& P, size_t b) {
                  ((col0[t] >> probe) & 1ull) == 0;
       }
       const unsigned hits = ballot(w, hit);
-      if (hits) wed = d0 + (first_set(hits) - 1) / G;
+      if (hits && (ET || wed < 0)) wed = d0 + (first_set(hits) - 1) / G;
       // the next pass reads the forefront this one wrote; the traceback
       // reads R
       warp_sync(w);
@@ -584,36 +590,38 @@ namespace {
 
 // one block an SM at least, nothing more asked: with the block size
 // alone, ptxas may cap the registers and spill
-template <int G>
+template <int G, bool ET>
 __global__ void __launch_bounds__(THREADS, 1)
     genasm_windows_wide_kernel(const Params P) {
   const long long pair = ((long long)blockIdx.x * THREADS + threadIdx.x) / WARP;
   if (pair >= P.B) return;  // the whole warp
   const int t = threadIdx.x % WARP;
-  wide_warp<G>(Warp{t, t + 1}, P, (size_t)pair);
+  wide_warp<G, ET>(Warp{t, t + 1}, P, (size_t)pair);
 }
 
-template <int G>
+template <int G, bool ET>
 int launch(const Params& P, cudaStream_t stream) {
   const long long threads = (long long)P.B * WARP;
   const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS));
-  genasm_windows_wide_kernel<G><<<grid, THREADS, 0, stream>>>(P);
+  genasm_windows_wide_kernel<G, ET><<<grid, THREADS, 0, stream>>>(P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// nw must be ceil(W/64), 5..32 (genasm_windows1.cu and genasm_windows.cu
-// take fewer); R scratch (K+1) * NWS * (W-O+NWS) words a pair, NWS = NW -
-// max(O-1,0)/64, forefront scratch (W+NW+1) * NW words a pair. Returns -1
-// for arguments the kernel does not take, else the launch's
-// cudaGetLastError().
+// key: the words per bitvector, ceil(W/64) in 5..32 (genasm_windows1.cu
+// and genasm_windows.cu take fewer), with ET_OFF set for the
+// instantiation without early termination; R scratch (K+1) * NWS *
+// (W-O+NWS) words a pair, NWS = NW - max(O-1,0)/64, forefront scratch
+// (FF_PAD+W+NW+1) * NW words a pair. Returns -1 for arguments the kernel
+// does not take, else the launch's cudaGetLastError().
 extern "C" int genasm_windows_wide_launch(
-    int nw, const void* text_words, int64_t text_words_n,
+    int key, const void* text_words, int64_t text_words_n,
     const void* text_base, const void* text_len, const void* pattern_words,
     int64_t pattern_stride, const void* pattern_len, int B, int W, int K,
     int O, int max_windows, void* R, void* ff, void* ed, void* failed,
     void* entries, void* counts, void* stream) {
+  const int nw = key & ~ET_OFF;
   if (nw < MIN_NW || nw > MAX_NW || nw != (W + 63) / 64 || O < 0 ||
       O >= W || K < 1 || text_words_n < 1 || pattern_stride < 1 ||
       max_windows < 0)
@@ -626,9 +634,10 @@ extern "C" int genasm_windows_wide_launch(
                  (uint64_t*)R,                (uint64_t*)ff,
                  (int32_t*)ed,                (int32_t*)failed,
                  (int16_t*)entries,           (int32_t*)counts};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (nw <= 8) return launch<8>(P, s);
-  if (nw <= 16) return launch<16>(P, s);
-  return launch<32>(P, s);
+  const bool et = !(key & ET_OFF);
+  auto* const fn = nw <= 8 ? (et ? &launch<8, true> : &launch<8, false>)
+                 : nw <= 16 ? (et ? &launch<16, true> : &launch<16, false>)
+                            : (et ? &launch<32, true> : &launch<32, false>);
+  return fn(P, (cudaStream_t)stream);
 }
 #endif

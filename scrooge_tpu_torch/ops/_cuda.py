@@ -1,8 +1,9 @@
 """Build, bind and count the port's CUDA kernels.
 
 Each kernel is a ``csrc/*.cu`` file with a plain C entry point. It is
-compiled with nvcc for ``sm_90a`` on first use (``buildcache``) and loaded
-with ctypes. Nothing here runs at import time, so the module
+compiled with nvcc for ``sm_90a`` on first use (``buildcache``; the
+headers under ``csrc/`` are on the include path and in the build key) and
+loaded with ctypes. Nothing here runs at import time, so the module
 imports on machines without CUDA.
 """
 
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import glob
 import os
 import shutil
 import threading
@@ -45,7 +47,8 @@ class CudaKernel:
     """One kernel source: its C entry point and its launch counts.
 
     The entry point's first argument selects the kernel's instantiation
-    (a template parameter: the word count, the variant). ``counts[key]``
+    (its template parameters: the word count and early termination,
+    engine.kernel_key; the variant). ``counts[key]``
     goes up by one each time ``launch`` starts that instantiation, and
     nowhere else, so a caller can show that a run went through it. The
     count is taken under the kernel's lock: shards of a mesh launch from
@@ -68,7 +71,9 @@ class CudaKernel:
             if self._fn is not None:
                 return self._fn
             so, self.build_log = compile_once(
-                os.path.join(CSRC, self.source), find_nvcc(), NVCC_FLAGS)
+                os.path.join(CSRC, self.source), find_nvcc(),
+                (*NVCC_FLAGS, "-I", CSRC),
+                deps=sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
             lib = ctypes.CDLL(so)
             fn = getattr(lib, self.symbol)
             fn.restype = ctypes.c_int
@@ -93,8 +98,9 @@ class CudaKernel:
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # replaces engine_pallas.slab_step_kernel (_multi_window_kernel) for two
-# to four words; keyed by the words per bitvector, NW = ceil(W/64) in
-# 2..4 (the entry point refuses 1: GENASM_WINDOWS1 takes one word)
+# to four words; keyed by engine.kernel_key: the words per bitvector,
+# NW = ceil(W/64) in 2..4 (the entry point refuses 1: GENASM_WINDOWS1
+# takes one word), with engine.ET_OFF set without early termination
 GENASM_WINDOWS = CudaKernel(
     "genasm_windows.cu", "genasm_windows_launch",
     [_P, _I64,            # text words, their count
@@ -106,7 +112,7 @@ GENASM_WINDOWS = CudaKernel(
      _P])                 # cudaStream_t
 
 # the window kernel for one word (W <= 64): the forefront in registers;
-# keyed by NW, which must be 1. No forefront scratch.
+# keyed by engine.kernel_key, whose NW must be 1. No forefront scratch.
 GENASM_WINDOWS1 = CudaKernel(
     "genasm_windows1.cu", "genasm_windows1_launch",
     [_P, _I64,            # text words, their count
@@ -119,7 +125,8 @@ GENASM_WINDOWS1 = CudaKernel(
 
 # the counterpart of engine_xla._window_step / _align_scan, which the JAX
 # package runs for W > 256: five to 32 words, a group of G threads a
-# pair; keyed by NW = ceil(W/64) in 5..32 (the entry point refuses fewer)
+# pair; keyed by engine.kernel_key, NW = ceil(W/64) in 5..32 (the entry
+# point refuses fewer)
 GENASM_WINDOWS_WIDE = CudaKernel(
     "genasm_windows_wide.cu", "genasm_windows_wide_launch",
     [_P, _I64,            # text words, their count

@@ -31,9 +31,15 @@ Semantics that differ from the JAX engines, and why no output changes:
 - the d-search always runs to the full ``cfg.K`` (no tb_cap), so a lane
   that fails FAIL_TB has no alignment within K and the scalar retry raises
   for it exactly as the JAX path does;
-- there are no slabs, so FAIL_DRIFT never occurs;
-- early termination is always on: the rows after the first hit are never
-  read by the traceback.
+- there are no slabs, so FAIL_DRIFT never occurs.
+
+``cfg.early_termination`` is honoured as the JAX engines honour it
+(engine_xla.py:236-241, engine_pallas.py:640-646): on, a window's d-loop
+stops at the first row that hits (every kernel lane on its own, the plain
+version once every lane has hit); off, every window fills rows d = 0..K.
+Either way the window's distance is the first row that hits and the
+traceback reads only rows up to it, so no output changes. The kernels
+take it as a template parameter (``kernel_key``).
 
 Bitvectors are NW = ceil(W/64) 64-bit words, word 0 the lowest, W <= 2048.
 The plain version keeps them LSB-aligned as in the scalar oracle
@@ -80,6 +86,9 @@ MULTIWORD_MAX_NW = 4
 SCRATCH_SHARE = 0.75
 # forefront slots below column 0 in genasm_windows_wide.cu (its FF_PAD)
 WIDE_FF_PAD = 72
+# flag of a kernel key (kernel_key): the instantiation without early
+# termination, which fills every row d = 0..K (each .cu's ET_OFF)
+ET_OFF = 1 << 8
 
 
 class BatchResult(NamedTuple):
@@ -87,10 +96,12 @@ class BatchResult(NamedTuple):
     failed: torch.Tensor         # (B,) int32 FAIL_* bitmask, 0 = aligned
     entries: torch.Tensor        # (MAXW, NE, B) int16 runs op << 12 | count
     counts: torch.Tensor         # (MAXW, B) int32 runs per window
-    # (2, B) int64 work per lane, from the plain version only: DP cells
-    # filled (rows searched x (n+1) columns, summed over windows) and
-    # traceback steps, what a bound on the engine's time counts. The
-    # kernel does the same work and leaves this None.
+    # (3, B) int64 work per lane, from the plain version only: DP cells
+    # filled (rows searched x (n+1) columns, summed over windows),
+    # traceback steps, and the cells of one row summed over the lane's
+    # windows (n+1 a window), what a bound on the engine's time counts:
+    # with early termination off a lane fills K+1 times that. The kernel
+    # does the same work and leaves this None.
     work: Optional[torch.Tensor] = None
 
 
@@ -200,6 +211,13 @@ def window_kernel(cfg: AlignConfig):
     return _cuda.GENASM_WINDOWS_WIDE
 
 
+def kernel_key(cfg: AlignConfig) -> int:
+    """The instantiation of window_kernel(cfg) the config launches, the
+    key of its launch counts: the words per bitvector, with ET_OFF set
+    when early termination is off."""
+    return num_words(cfg.W) | (0 if cfg.early_termination else ET_OFF)
+
+
 def group_size(W: int) -> int:
     """Threads a row of genasm_windows_wide.cu, one a word: the power of
     two >= NW, at least 8 (8, 16 or 32). A warp holds 32 / G of these
@@ -300,7 +318,7 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
         scratch = [torch.empty(n, dtype=torch.int64, device=dev)
                    for n in scratch_words(cfg, hi - lo) if n]
         with torch.cuda.device(dev):
-            kernel.launch(num_words(cfg.W), text_words.data_ptr(),
+            kernel.launch(kernel_key(cfg), text_words.data_ptr(),
                           text_words.numel(), text_base[lo:].data_ptr(),
                           text_len[lo:].data_ptr(),
                           pattern_words[lo:].data_ptr(),
@@ -386,8 +404,9 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     """The plain torch version of the window engine, on any device.
 
     Lanes advance in lockstep, as in engine_xla: per window, a d-loop
-    that stops once every active lane has found its distance, an i-loop
-    that fills one row, then a traceback of at most 2*tb_limit steps.
+    that stops once every active lane has found its distance (with early
+    termination; without, it fills rows 0..K), a scan that fills one
+    row, then a traceback of at most 2*tb_limit steps.
     The loop over windows stops once every lane is done; later windows
     emit nothing in either engine.
     """
@@ -422,7 +441,7 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     done = plen <= 0
     entries = zeros(max_windows, NE, B, dtype=torch.int16)
     counts = zeros(max_windows, B, dtype=torch.int32)
-    work = zeros(2, B)
+    work = zeros(3, B)
 
     for w in range(max_windows):
         act = ~done
@@ -454,6 +473,7 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
 
         # ---- DP fill (pyref.genasm_dc) ----
         found = ~act
+        work[2] += torch.where(act, n + 1, 0)
         wed = zeros(B)
         rows = []  # R[d]: the stored DENT columns of row d, (COLS, NW, B)
         probe = (m - 1).clamp(min=0)
@@ -479,11 +499,13 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
             right = ff[0]
             rows.append(ff[:COLS])
             searching = ~found
-            work[0] += torch.where(searching, n + 1, 0)
+            # without early termination every active lane fills the row
+            filling = searching if cfg.early_termination else act
+            work[0] += torch.where(filling, n + 1, 0)
             hit = searching & (bv.bit(right, probe) == 0)
             wed = torch.where(hit, d, wed)
             found = found | hit
-            if bool(found.all()):
+            if cfg.early_termination and bool(found.all()):
                 break
         Rf = torch.stack(rows).reshape(-1)  # [row][col][word][lane]
 

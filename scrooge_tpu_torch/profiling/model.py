@@ -163,16 +163,22 @@ def sweep_rows(seq_len: int = 10_000, frequency: float = 1e9):
     return rows
 
 
-def expected_rows(W: int, O: int, error_rate: float, batch: int) -> float:
+def expected_rows(W: int, O: int, error_rate: float, batch: int, *,
+                  K: int = None, early_termination: bool = True) -> float:
     """Expected DP rows per window with batched early termination: the
     max window edit distance over `batch` lockstep lanes, approximated
-    from the Binomial(W-O, error_rate) upper tail."""
+    from the Binomial(W-O, error_rate) upper tail, at most K+1 (K
+    defaults to W, the sweeps' K). Without early termination every
+    window fills rows 0..K: K+1."""
+    K = W if K is None else K
+    if not early_termination:
+        return K + 1
     tb = W - O
     mean = tb * error_rate
     std = math.sqrt(max(tb * error_rate * (1 - error_rate), 1e-9))
     # expected max of `batch` iid ~ mean + std * sqrt(2 ln batch)
     return min(mean + std * math.sqrt(2 * math.log(max(batch, 2))) + 1,
-               W + 1)
+               K + 1)
 
 
 
@@ -212,6 +218,17 @@ def _bound(ops: int, nbytes: int, ops_rate: float):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def filled_cells(cfg, res) -> int:
+    """DP cells a window engine fills on the inputs of ``res``, a plain
+    result (its work counters): the counted cells with early
+    termination; without, every window's K+1 rows of n+1 cells, which
+    the count of one row's cells over the windows (work[2]) gives from a
+    result of either setting (the windows do not depend on it)."""
+    if cfg.early_termination:
+        return int(res.work[0].sum().item())
+    return (cfg.K + 1) * int(res.work[2].sum().item())
+
+
 def window_ops(W: int, cells: int, steps: int) -> int:
     """INT32 instructions of ``cells`` DP cells and ``steps`` traceback
     steps at window width W (window_bound)."""
@@ -231,8 +248,10 @@ def window_bound(cfg, maxw, args, res, ops_rate):
     (ms, 'bytes' or 'operations', detail). ``args`` are the inputs of
     engine.align_windows, ``res`` the plain version's result on them.
 
-    Operations: every DP cell the run filled (its work counters; the
-    kernel fills the same cells, d = 0 cells counted alike) at
+    Operations: every DP cell the run filled (filled_cells: the work
+    counters, with the config's early termination, of a plain result of
+    either setting; the kernel fills the same cells, d = 0 cells counted
+    alike) at
     CELL_OPS_PER_WORD x NW INT32 instructions, plus TB_STEP_OPS a
     traceback step. The cell is
     ``(shl1(right) | pm) & shl1(topright) & shl1(top) & topright`` on NW
@@ -247,7 +266,7 @@ def window_bound(cfg, maxw, args, res, ops_rate):
     a count of the recurrence, not a measured instruction mix.
     Bytes: the packed text and pattern chars read once, lengths and
     bases, every run, count and result written once."""
-    cells = int(res.work[0].sum().item())
+    cells = filled_cells(cfg, res)
     steps = int(res.work[1].sum().item())
     ops = window_ops(cfg.W, cells, steps)
     B = int(args[4].shape[0])
@@ -261,10 +280,10 @@ def window_bound(cfg, maxw, args, res, ops_rate):
 def r_floor(cfg, res):
     """Bytes of R a tile must write, and their time at the memory rate:
     every searched row's stored words (the words of bits [O-1, W) of
-    columns < COLS), the rows counted from the plain result's DP cells
-    (a row of a window with n chars of text is n+1 cells, n <= W), so a
+    columns < COLS), the rows counted from the DP cells (filled_cells; a
+    row of a window with n chars of text is n+1 cells, n <= W), so a
     floor; the kernel writes up to a pass's rows more a window."""
-    rows = int(res.work[0].sum().item()) // (cfg.W + 1)
+    rows = filled_cells(cfg, res) // (cfg.W + 1)
     stored = -(-cfg.W // 64) - max(cfg.O - 1, 0) // 64
     nbytes = rows * stored * cfg.columns * 8
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
@@ -302,16 +321,19 @@ def fill_bound(variant, wed, n, ops_rate):
 
 
 def sol_estimate(W: int, K: int, O: int, read_len: int, error_rate: float,
-                 batch: int, ops_rate: float) -> dict:
+                 batch: int, ops_rate: float,
+                 early_termination: bool = True) -> dict:
     """The bound of a shape alone, from expected counts: windows of
     ceil(read_len / tb_limit * (1 + e)), expected_rows(W, O, e, 1) rows a
-    window (each pair's fill stops at its own distance: no lanes in
-    lockstep), W+1 cells a row, tb_limit traceback steps and
+    window with early termination (each pair's fill stops at its own
+    distance: no lanes in lockstep), K+1 without, W+1 cells a row,
+    tb_limit traceback steps and
     2 tb_limit e + 1 runs a window. An estimate: window_bound on the
     plain engine's counters is the bound of real inputs."""
     tb = W - O
     windows = math.ceil(read_len / tb * (1 + error_rate))
-    rows = min(expected_rows(W, O, error_rate, 1), K + 1)
+    rows = expected_rows(W, O, error_rate, 1, K=K,
+                         early_termination=early_termination)
     cells = int(batch * windows * rows * (W + 1))
     steps = batch * windows * tb
     runs = int(batch * windows * (2 * tb * error_rate + 1))

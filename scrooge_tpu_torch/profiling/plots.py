@@ -4,8 +4,9 @@ Port of scrooge_tpu/profiling/plots.py (:59-488), reading the CSVs of the
 port's own harnesses, which keep the JAX file names and headers and add
 what ran (``engine``, ``card``, ``cards``, ``shards``, ``processes``):
 
-  throughput  — aligns/s vs W (and vs O, vs batch tile), ET on/off series
-                (profiling/sweep.py device)
+  throughput  — aligns/s vs W (and vs O, vs batch tile), an early
+                termination on and an off series, each measured with its
+                own setting (profiling/sweep.py device)
   accuracy    — per-pair affine-score distributions, device vs the
                 baselines (sweep accuracy)
   roofline    — measured aligns/s against the H100 bound of
@@ -76,7 +77,7 @@ def plot_throughput(csv_path: str, out: str, x_axis: str = "W"):
     for et, pts in sorted(series.items()):
         xs = sorted(pts)
         line, = ax.plot(xs, [pts[x] for x in xs], marker="o",
-                        label=f"ET={'on' if et else 'off'}")
+                        label=f"early termination {'on' if et else 'off'}")
         ax.fill_between(xs, [band[et][x][0] for x in xs],
                         [band[et][x][1] for x in xs],
                         color=line.get_color(), alpha=0.2, linewidth=0)

@@ -23,10 +23,12 @@ What differs, and why:
   did not run.
 - ``batch`` is the number of pairs the row ran (the tile, or fewer when
   the dataset holds fewer reads).
-- The port's engines always stop a window's d-search at its first hit,
-  which changes no output; ``early termination`` records the config the
-  row was asked for, so an ET=False row measures the same work as its
-  ET=True twin.
+- ``early termination`` is the config the row ran, and the engines honour
+  it as the JAX ones do: an ET=True row stops each window's d-search at
+  its first hit, an ET=False row fills every row 0..K (K = W in the WO
+  and O families), with the same output. The two rows of a W measure
+  the ablation, each under its own kernel instantiation
+  (``ops/engine.kernel_key``).
 - The run-buffer budget is half the device's free memory (host memory
   for --device=cpu), measured when the sweep starts, not a constant.
 - A config or family that fails is printed on stderr, the sweep goes on

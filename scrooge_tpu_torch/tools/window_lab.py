@@ -171,14 +171,14 @@ SOURCES = {
              " + b % LB;\n",
              "  extern __shared__ uint64_t ff_smem[];  // a block's rows\n"
              "  uint64_t* __restrict__ fl = ff_smem + threadIdx.x;\n"),
-            _before("  genasm_windows_kernel<NW><<<grid, THREADS, 0, "
+            _before("  genasm_windows_kernel<NW, ET><<<grid, THREADS, 0, "
                     "stream>>>(\n",
                     "  const int smem = ff_cols(W) * NW * LB * 8;\n"
-                    "  cudaFuncSetAttribute(genasm_windows_kernel<NW>,\n"
+                    "  cudaFuncSetAttribute(genasm_windows_kernel<NW, ET>,\n"
                     "      cudaFuncAttributeMaxDynamicSharedMemorySize, "
                     "smem);\n"),
-            ("  genasm_windows_kernel<NW><<<grid, THREADS, 0, stream>>>(",
-             "  genasm_windows_kernel<NW><<<grid, THREADS, smem, "
+            ("  genasm_windows_kernel<NW, ET><<<grid, THREADS, 0, stream>>>(",
+             "  genasm_windows_kernel<NW, ET><<<grid, THREADS, smem, "
              "stream>>>("),
         ),
         "tb8": (("  return NW == 2 ? 4 : 8;", "  return 8;"),),
@@ -281,7 +281,7 @@ def launch(kernel, cfg, maxw, args, extra: int = 0):
               torch.empty(nf, dtype=torch.int64, device=dev))
         scratch += (ff.data_ptr(),)
     with torch.cuda.device(dev):
-        kernel.launch(engine.num_words(cfg.W), tw.data_ptr(), tw.numel(),
+        kernel.launch(engine.kernel_key(cfg), tw.data_ptr(), tw.numel(),
                       base.data_ptr(), tlen.data_ptr(), pw.data_ptr(),
                       int(pw.shape[1]), plen.data_ptr(), B, cfg.W, cfg.K,
                       cfg.O, int(maxw), *scratch, ed.data_ptr(),

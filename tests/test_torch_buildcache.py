@@ -44,3 +44,19 @@ def test_new_flags_build_anew(gxx):
     so, _ = buildcache.compile_once(src, compiler, FLAGS)
     other, log = buildcache.compile_once(src, compiler, FLAGS[:2])
     assert other != so and os.path.exists(other) and "unused" not in log
+
+
+def test_a_changed_header_builds_anew(gxx, tmp_path):
+    """A header the source includes is part of the key: the same source
+    and flags with an edited header build a new library."""
+    compiler, src = gxx
+    header = tmp_path / "k.h"
+    header.write_text("// one\n")
+    so, _ = buildcache.compile_once(src, compiler, FLAGS, deps=[str(header)])
+    again, _ = buildcache.compile_once(src, compiler, FLAGS,
+                                       deps=[str(header)])
+    assert again == so
+    header.write_text("// two\n")
+    other, _ = buildcache.compile_once(src, compiler, FLAGS,
+                                       deps=[str(header)])
+    assert other != so and os.path.exists(other)

@@ -74,6 +74,34 @@ def test_kernel_matches_plain(cuda, wko):
     _same(got, want)
 
 
+@pytest.mark.parametrize("wko", [(64, 64, 33), (64, 16, 33),
+                                 (128, 128, 65), (256, 64, 129),
+                                 (512, 10, 257), (1024, 8, 0)])
+def test_kernel_without_early_termination_matches_plain(cuda, wko):
+    """The instantiations without early termination (engine.ET_OFF in
+    the key) on edge pairs: FAIL_TB lanes at the small K, and every row
+    up to K filled after the first hit."""
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O, early_termination=False)
+    text, tlen, pattern, plen = edge_pairs(W + K, 100, 300, 280,
+                                           cfg.tb_limit)
+    args = (pack.pack_2bit(torch.from_numpy(text)).to(cuda),
+            torch.from_numpy(tlen).to(cuda),
+            pack.pack_2bit(torch.from_numpy(pattern)).to(cuda),
+            torch.from_numpy(plen).to(cuda))
+    maxw = cfg.max_windows(280)
+    kernel, key = engine.window_kernel(cfg), engine.kernel_key(cfg)
+    assert key == engine.num_words(W) | engine.ET_OFF
+    before = kernel.counts[key]
+    got = engine.align_batch(cfg, maxw, *args)
+    assert kernel.counts[key] == before + 1
+    B, Tw = args[0].shape
+    base = torch.arange(B, dtype=torch.int64, device=cuda) * (Tw * 16)
+    want = engine.align_windows_plain(cfg, maxw, args[0], base, *args[1:])
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
 @pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65),
                                  (256, 256, 129)])
 def test_kernel_mapped_matches_plain(cuda, wko):

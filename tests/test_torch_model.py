@@ -74,7 +74,8 @@ def identical_pairs():
     69, 38 and 7 text chars left at its four windows, 65+65+39+8 = 177
     cells; lane 1's read ends in its second window, 65+65 = 130 cells; a
     traceback step a read char (100 and 40); one '=' run a window (4
-    and 2)."""
+    and 2). A window fills one row, so the cells of one row over the
+    windows are the cells filled."""
     cfg = st.AlignConfig(W=64, K=64, O=33)
     text = np.random.default_rng(0).integers(0, 4, (2, 100), dtype=np.uint8)
     tw = pack.pack_2bit(torch.from_numpy(text))
@@ -88,7 +89,7 @@ def identical_pairs():
 
 def test_plain_work_counters_are_the_hand_counts(identical_pairs):
     _, _, res = identical_pairs
-    assert res.work.tolist() == [[177, 130], [100, 40]]
+    assert res.work.tolist() == [[177, 130], [100, 40], [177, 130]]
     assert res.counts.sum(0).tolist() == [4, 2]
     assert res.edit_distance.tolist() == [0, 0]
 
@@ -147,3 +148,42 @@ def test_sol_counted_on_the_cpu_is_window_bound():
                                "--read_len=300", "--counted",
                                "--device=cpu"])
     assert "expected bound_ms: " in out and "counted bound_ms: " in out
+
+
+def test_window_bound_without_early_termination_by_hand(identical_pairs):
+    """Without early termination every window fills its 65 rows: 65 x 307
+    cells, from the ET-on result's count of one row's cells as from the
+    ET-off result's own counters; R's floor counts them as 307 whole
+    rows of 65 cells."""
+    cfg, args, res = identical_pairs
+    off = cfg.__class__(W=64, K=64, O=33, early_termination=False)
+    res_off = engine.align_windows(off, 8, *args)
+    assert res_off.work.tolist() == [[65 * 177, 65 * 130], [100, 40],
+                                     [177, 130]]
+    ops = 65 * 307 * 8 + 140 * 12
+    for r in (res, res_off):
+        ms, by, detail = model.window_bound(off, 8, args, r, ops * 1e3)
+        assert (detail["cells"], detail["int32_ops"]) == (65 * 307, ops)
+        assert (ms, by) == (pytest.approx(1.0), "operations")
+        assert model.r_floor(off, r)[0] == 307 * 32 * 8
+
+
+def test_expected_rows_follow_early_termination():
+    """K+1 rows a window without early termination; with it the
+    binomial tail, capped at K+1 (W+1 where K is not given, as the JAX
+    module has it)."""
+    assert model.expected_rows(64, 33, 0.05, 1, K=64,
+                               early_termination=False) == 65
+    assert model.expected_rows(512, 257, 0.05, 1,
+                               early_termination=False) == 513
+    assert model.expected_rows(64, 33, 0.05, 1, K=64) == \
+        model.expected_rows(64, 33, 0.05, 1)
+    assert model.expected_rows(64, 33, 0.5, 16384, K=8) == 9
+    rate = 1e12
+    on = model.sol_estimate(64, 64, 33, 10_000, 0.05, 16_384, rate)
+    off = model.sol_estimate(64, 64, 33, 10_000, 0.05, 16_384, rate,
+                             early_termination=False)
+    assert off["rows_per_window"] == 65 < 65 * on["rows_per_window"]
+    assert off["cells"] == pytest.approx(
+        on["cells"] * 65 / on["rows_per_window"], rel=1e-6)
+    assert off["bound_ms"] > 10 * on["bound_ms"]

@@ -12,12 +12,12 @@
 // word the kernel did not write, or a count it did not write, shows in the
 // output.
 //
-// stdin: int32 W, K, O, max_windows, B; int64 text_words_n,
-// pattern_stride; then text_words (text_words_n uint32), text_base (B
-// int64), text_len (B int32), pattern_words (B * pattern_stride uint32),
-// pattern_len (B int32). stdout: ed (B int32), failed (B int32), entries
-// (max_windows * (2(W-O)+2) * B int16, lane-minor), counts (max_windows *
-// B int32).
+// stdin: int32 W, K, O, max_windows, B, early_termination (0 or 1);
+// int64 text_words_n, pattern_stride; then text_words (text_words_n
+// uint32), text_base (B int64), text_len (B int32), pattern_words (B *
+// pattern_stride uint32), pattern_len (B int32). stdout: ed (B int32),
+// failed (B int32), entries (max_windows * (2(W-O)+2) * B int16,
+// lane-minor), counts (max_windows * B int32).
 
 #include <cstdint>
 #include <cstdio>
@@ -95,20 +95,24 @@ void write_all(const std::vector<T>& v) {
 
 // the kernel's warps, one pair each, one after the other
 template <int G>
-void run(const Params& P) {
-  for (int b = 0; b < P.B; ++b) wide_warp<G>(HostWarp{0, WARP}, P, (size_t)b);
+void run(const Params& P, bool et) {
+  for (int b = 0; b < P.B; ++b) {
+    if (et) wide_warp<G, true>(HostWarp{0, WARP}, P, (size_t)b);
+    else wide_warp<G, false>(HostWarp{0, WARP}, P, (size_t)b);
+  }
 }
 
 }  // namespace
 
 int main() {
-  int32_t head[5];
+  int32_t head[6];
   int64_t head64[2];
-  if (std::fread(head, sizeof(int32_t), 5, stdin) != 5 ||
+  if (std::fread(head, sizeof(int32_t), 6, stdin) != 6 ||
       std::fread(head64, sizeof(int64_t), 2, stdin) != 2)
     return 2;
   const int W = head[0], K = head[1], O = head[2], maxw = head[3],
             B = head[4];
+  const bool et = head[5] != 0;
   const int64_t tw_n = head64[0], pstride = head64[1];
   const int NW = (W + 63) / 64;
   if (NW < MIN_NW || NW > MAX_NW || O < 0 || O >= W || K < 1 || maxw < 0 ||
@@ -134,9 +138,9 @@ int main() {
                  K,                 O,             maxw,
                  R.data(),          ff.data(),     ed.data(),
                  failed.data(),     entries.data(), counts.data()};
-  if (NW <= 8) run<8>(P);
-  else if (NW <= 16) run<16>(P);
-  else run<32>(P);
+  if (NW <= 8) run<8>(P, et);
+  else if (NW <= 16) run<16>(P, et);
+  else run<32>(P, et);
   write_all(ed);
   write_all(failed);
   write_all(entries);

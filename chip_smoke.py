@@ -112,7 +112,14 @@ Phases, one line each:
      K+1) and its launches; then every path of phases 4, 7 and 10 again
      through align_reads with ET off, counts set to 0 just before: the
      output must equal the ET-on path's and only the ET-off instantiation
-     may launch.
+     may launch;
+ 14. the bench: ``python -m scrooge_tpu_torch.bench`` in a process of its
+     own, at its defaults (32,768 reads of 10 kbp in two tiles, W=64) and
+     at the short-read point BENCH_W=32 BENCH_O=17 BENCH_READ_LEN=150;
+     each run must exit 0 (it checks its own output against pyref, CIGAR
+     validity and packed against strings), its JSON line must hold every
+     key of the JAX bench's line and ``card``, and each of its passes
+     (end to end, kernel-only, staged) must launch the one-word kernel.
 
 Beside phase 4's and 7's bound lines, a sol line gives the bound that
 profiling/model.py reckons for the bench tile from expected counts alone
@@ -133,7 +140,6 @@ import csv
 import io
 import json
 import os
-import random
 import re
 import subprocess
 import sys
@@ -310,29 +316,15 @@ def compare(cfg, maxw, args, label):
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, plain=want)
 
 
-def packed_cigars(packed):
-    """All CIGAR strings of a PackedAlignments via the native formatter."""
-    from scrooge_tpu_torch import native
-
-    lens = np.diff(packed.run_offsets).astype(np.int32)
-    n = len(lens)
-    buf = np.zeros((max(int(lens.max(initial=0)), 1), n), np.uint16)
-    lane = np.repeat(np.arange(n), lens)
-    pos = np.arange(len(packed.runs)) - np.repeat(packed.run_offsets[:-1],
-                                                  lens)
-    buf[pos, lane] = packed.runs
-    return native.format_cigars(buf, lens)
-
-
 def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     """align_reads through the public API, strings then packed, with both
     window kernels' counts set to 0 just before and read just after;
     checks both outputs agree, ``nsample`` pairs (the longest read among
-    them) equal pyref and ``ncigar`` CIGARs are valid. Returns the counts,
-    {kernel: {key: launches}}, and the string output."""
+    them) equal pyref and ``ncigar`` CIGARs are valid (the bench's
+    check_output). Returns the counts, {kernel: {key: launches}}, and the
+    string output."""
     import scrooge_tpu_torch as st
-    from scrooge_tpu_torch import pyref
-    from scrooge_tpu_torch.cigar import is_valid_cigar
+    from scrooge_tpu_torch import bench
     from scrooge_tpu_torch.ops import _cuda
 
     window_kernels = (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS,
@@ -353,32 +345,13 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     if sum(sum(c.values()) for c in counts.values()) < 1:
         raise AssertionError(f"{label}: the path never launched the kernel")
     n = len(ds.reads)
-    if [a.cigar for a in strs] != packed_cigars(packed) or not np.array_equal(
-            np.array([a.edit_distance for a in strs]),
-            packed.edit_distances):
-        raise AssertionError(f"{label}: strings and packed output disagree")
-    lens = [len(r.content) for r in ds.reads]
-    rng = random.Random(7)
-    sample = sorted({int(np.argmax(lens))}
-                    | set(rng.sample(range(n), nsample - 1)))
-    bound = lambda r: cfg.max_windows(len(r.content)) * cfg.tb_limit + cfg.W
-    for i in sample:
-        r = ds.reads[i]
-        s = r.locations[0].start_in_reference
-        want = pyref.genasm(pyref.encode(ds.genome.content[s : s + bound(r)]),
-                            pyref.encode(r.content), cfg)
-        if (strs[i].edit_distance, strs[i].cigar) != want:
-            raise AssertionError(f"{label}: pair {i} differs from pyref")
-    for i in rng.sample(range(n), ncigar):
-        r = ds.reads[i]
-        if not is_valid_cigar(strs[i].cigar, strs[i].edit_distance,
-                              ds.genome.content, r.content,
-                              r.locations[0].start_in_reference):
-            raise AssertionError(f"{label}: pair {i} has an invalid CIGAR")
+    npyref, ncigar = bench.check_output(ds.genome.content,
+                                        bench.pair_reads(ds.reads), cfg,
+                                        strs, packed, nsample, ncigar, label)
     phase(label, W=cfg.W, K=cfg.K, O=cfg.O, pairs=n,
           launches=json.dumps({k.source: c for k, c in counts.items()}),
           retried_pairs=stats.retried_pairs,
-          pyref_exact=len(sample), valid_cigars=ncigar,
+          pyref_exact=npyref, valid_cigars=ncigar,
           wall_s=f"{wall:.3f}", aligns_per_s=f"{n / wall:.1f}",
           packed_wall_s=f"{pwall:.3f}",
           packed_aligns_per_s=f"{n / pwall:.1f}",
@@ -904,6 +877,7 @@ def et_off(tiles, paths, dev, ops_rate):
 def mesh_path(ds, prepared, main_strs, cfg):
     """Phase 11, part 1: align_reads on a mesh (see the docstring)."""
     import scrooge_tpu_torch as st
+    from scrooge_tpu_torch.bench import packed_cigars
     from scrooge_tpu_torch.ops import _cuda, engine
     from scrooge_tpu_torch.parallel import mesh as M
     from scrooge_tpu_torch.profiling import kernel_time
@@ -1159,6 +1133,7 @@ def pipeline_path(ds, prepared, single, tmp):
     """Phase 12 (see the docstring): align_reads in 16 tiles."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch import api
+    from scrooge_tpu_torch.bench import packed_cigars
     from scrooge_tpu_torch.ops import _cuda
     from scrooge_tpu_torch.profiling import pipeline
 
@@ -1211,6 +1186,50 @@ def pipeline_path(ds, prepared, single, tmp):
                 raise AssertionError(f"pipeline W={W} {mode}: launches "
                                      f"{launches}, {n_kernels} traced")
     api.DECODE_THREADS = threads
+
+
+# phase 14: the bench at its defaults, then at the short-read point
+BENCH_RUNS = (("long", {}),
+              ("short", {"BENCH_W": "32", "BENCH_O": "17",
+                         "BENCH_READ_LEN": "150"}))
+
+
+def bench_path():
+    """Phase 14 (see the docstring): ``python -m scrooge_tpu_torch.bench``
+    as a user runs it, in a process of its own whose kernel counts start
+    at 0; its stderr lines (the breakdowns, the kernel tile, the launches
+    of each pass) are printed after its phase line."""
+    from scrooge_tpu_torch import bench
+    from scrooge_tpu_torch.ops import _cuda
+
+    for point, env in BENCH_RUNS:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "scrooge_tpu_torch.bench"],
+                             cwd=ROOT, env={**os.environ, **env},
+                             capture_output=True, text=True, timeout=400)
+        secs = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"bench {point} exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        want = (*bench.KEYS, *bench.CARD_KEYS,
+                *(bench.LONG_READ_KEYS if point == "long" else ()))
+        missing = [k for k in want if k not in line]
+        launches = json.loads(next(
+            ln for ln in out.stderr.splitlines()
+            if ln.startswith("# launches "))[len("# launches "):])
+        phase("bench", point=point, env=json.dumps(env),
+              seconds=f"{secs:.2f}", line=json.dumps(line),
+              launches=json.dumps(launches))
+        for ln in out.stderr.splitlines():
+            print(f"  bench[{point}] {ln}", flush=True)
+        if missing:
+            raise AssertionError(f"bench {point}: no {missing} in its line")
+        for run in ("end_to_end", "kernel_only", "staged"):
+            if launches.get(run, {}).get(_cuda.GENASM_WINDOWS1.source,
+                                         {}).get("1", 0) < 1:
+                raise AssertionError(f"bench {point}: its {run} pass never "
+                                     "launched genasm_windows1.cu")
 
 
 def main() -> int:
@@ -1375,6 +1394,9 @@ def main() -> int:
              "bench tile W=128": (wcfg, wstaged, wide_tile["plain"]),
              "1024 bench reads W=512": w512}
     kernels += et_off(tiles, paths, dev, ops_rate)
+
+    # ---- 14. the bench ----
+    bench_path()
 
     print(json.dumps({"kernels": kernels}))
     print(card)

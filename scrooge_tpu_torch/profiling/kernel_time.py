@@ -5,9 +5,20 @@ batch on the device once, then time only engine launches with CUDA
 events, N launches per sample and one synchronise; ``kernel_rate_samples``
 gives the samples as aligns/second, as the sweeps record them. There is
 no CPU fallback: a device time needs a device.
+
+As a script it times the engine on the bench's dataset at several tiles,
+in turns, which is how the bench's default kernel tile was chosen:
+
+    python -m scrooge_tpu_torch.profiling.kernel_time \
+        --tiles 16384 24576 32768 [--reads 32768 --read_len 10000 --W 64]
 """
 
 from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
 
 import numpy as np
 import torch
@@ -70,3 +81,44 @@ def kernel_rate_samples(staged, reps: int = 4, groups: int = 3):
     (scrooge_tpu/profiling/kernel_time.py:62)."""
     n = staged[3]
     return [n * 1e3 / ms for ms in engine_ms(staged, reps, groups)]
+
+
+def main(argv=None) -> int:
+    """Time the engine at each tile of ``--tiles`` on the bench's dataset
+    (W, K = W, O = W//2+1), three rounds in turns of 3 x 6 calls a tile;
+    prints a JSON line a tile and the fastest by median."""
+    p = argparse.ArgumentParser(
+        description="kernel-only aligns/s of the bench dataset by tile")
+    p.add_argument("--tiles", type=int, nargs="+", required=True)
+    p.add_argument("--reads", type=int, default=32768)
+    p.add_argument("--read_len", type=int, default=10000)
+    p.add_argument("--W", type=int, default=64)
+    args = p.parse_args(argv)
+    from ..config import AlignConfig
+    from ..utils.simulate import simulate_dataset
+
+    dev = resolve_device("cuda")
+    cfg = AlignConfig(W=args.W, K=args.W, O=args.W // 2 + 1)
+    ds = simulate_dataset(genome_len=1_000_000, num_reads=args.reads,
+                          read_len=args.read_len, accuracy=0.95, seed=7)
+    genome = PreparedGenome(ds.genome)
+    staged = {t: stage_mapped(genome, ds.reads,
+                              dataclasses.replace(cfg, batch_tile=t), dev)
+              for t in args.tiles}
+    rates = {t: [] for t in args.tiles}
+    for _ in range(3):  # in turns, so drift reaches every tile alike
+        for t in args.tiles:
+            rates[t] += kernel_rate_samples(staged[t], 6, 3)
+    median = {t: sorted(r)[len(r) // 2] for t, r in rates.items()}
+    for t in args.tiles:
+        print(json.dumps({"tile": t, "pairs": staged[t][3], "W": cfg.W,
+                          "read_len": args.read_len, "median": median[t],
+                          "min": min(rates[t]), "max": max(rates[t]),
+                          "samples": len(rates[t])}))
+    print(json.dumps({"fastest_tile": max(args.tiles, key=median.get),
+                      "card": torch.cuda.get_device_name(dev)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

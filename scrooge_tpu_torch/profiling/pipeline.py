@@ -141,6 +141,15 @@ def row(mode: str, stats, wall: float, reads, cfg, device,
         "device_busy_share": "" if busy is None else busy}
 
 
+def write_csv(path: str, rows) -> None:
+    """Write rows (row()) to ``path`` under HEADER, the CSV that
+    ``plots pipeline`` reads."""
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=HEADER)
+        w.writeheader()
+        w.writerows(rows)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", required=True, help="the CSV to write")
@@ -186,10 +195,7 @@ def main(argv=None) -> int:
                 rows.append(row(mode, stats, wall, ds.reads, cfg,
                                 args.device, busy))
                 print(json.dumps(rows[-1]), flush=True)
-    with open(args.out, "w", newline="") as f:
-        w = csv.DictWriter(f, fieldnames=HEADER)
-        w.writeheader()
-        w.writerows(rows)
+    write_csv(args.out, rows)
     print(f"wrote {len(rows)} rows to {args.out}", file=sys.stderr)
     return 0
 

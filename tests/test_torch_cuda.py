@@ -413,3 +413,43 @@ def test_fill_lab_kernel_matches_plain(cuda, variant, case):
     # would add (W+1) * B words
     R = (kernel_lab.K + 1) * kernel_lab.COLS * B * 8
     assert scratch <= (R if variant == "full" else 0) + 12 * B + 4 * 512
+
+
+def test_bench_on_cuda(cuda, monkeypatch, capsys):
+    """The bench's main() on the card at 1,024 reads of 2 kbp: its
+    kernel-only samples come from the one-word kernel, its value is
+    positive, and its line holds every key of the card's line."""
+    import json
+    import os
+
+    from scrooge_tpu_torch import bench
+    from scrooge_tpu_torch.profiling import kernel_time
+
+    for name in [n for n in os.environ if n.startswith("BENCH_")]:
+        monkeypatch.delenv(name)
+    for name, value in {"BENCH_READS": "1024", "BENCH_READ_LEN": "2000",
+                        "BENCH_GENOME": "200000",
+                        "BENCH_TILE": "1024"}.items():
+        monkeypatch.setenv(name, value)
+    one = _cuda.GENASM_WINDOWS1
+    seen = []
+    samples = kernel_time.kernel_rate_samples
+
+    def counted(staged, reps, groups):
+        before = one.counts[1]
+        out = samples(staged, reps, groups)
+        seen.append((one.counts[1] - before, len(out)))
+        return out
+
+    monkeypatch.setattr(kernel_time, "kernel_rate_samples", counted)
+    assert bench.main() == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # one warm-up call, then reps calls in each group
+    assert seen == [(1 + bench.KERNEL_REPS * bench.KERNEL_GROUPS,
+                     bench.KERNEL_GROUPS)]
+    assert set(line) == {*bench.KEYS, *bench.CARD_KEYS, *bench.LONG_READ_KEYS}
+    assert line["value"] > 0 and line["metric"] == (
+        "long_read_aligns_per_second")
+    assert (line["kernel_aligns_min"] <= line["value"]
+            <= line["kernel_aligns_max"])
+    assert line["card"] != "cpu"

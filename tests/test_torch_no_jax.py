@@ -17,7 +17,7 @@ import sys
 
 import torch
 import scrooge_tpu_torch as st
-from scrooge_tpu_torch import baselines, cigar, io, wfa
+from scrooge_tpu_torch import baselines, bench, cigar, io, wfa
 from scrooge_tpu_torch.cli import baseline_cli, options, tests_cli
 from scrooge_tpu_torch.ops import _cuda, engine, pack
 from scrooge_tpu_torch.parallel import distributed, mesh

@@ -17,8 +17,12 @@ Phases, one line each:
      genasm_windows.cu); then 512 unrelated pairs of 1 kbp at 64/64/33
      and 128/128/65 (a quarter of the texts run out: rows up to K and the
      row pair that computes row K+1) and at 64/16/33 and 128/16/65
-     (FAIL_TB lanes); then the main path's own tile (16384 reads of 10 kbp
-     at 64/64/33); every output must be identical;
+     (FAIL_TB lanes); then 512 of those ~1 kbp pairs as strings through
+     align_pairs at 96/96/49 (tb_limit 47: uint8 runs read back), strings
+     then packed, which must agree, equal pyref on sampled pairs, carry
+     valid CIGARs, launch genasm_windows.cu and read back one byte a run
+     entry; then the main path's own tile (16384 reads of 10 kbp at
+     64/64/33); every output must be identical;
   4. main path: align_reads on the bench workload (simulate_dataset(
      1 Mbp genome, 16384 reads x 10 kbp, 95 % accuracy, seed 7), W=64
      K=64 O=33, one tile of 16384), strings then packed; the one-word
@@ -28,9 +32,10 @@ Phases, one line each:
   5. kernel-only time of the same tile, CUDA events, 3 x 3 calls;
   6. the README's quick-start pair;
   7. wide path: the same tile at W=128 K=128 O=65 (two words), kernel
-     against plain, then align_reads checked as in phase 4, and its
-     kernel-only time; then align_reads at 192/192/97 and 256/256/129 on
-     512 reads of 2 kbp, each held against plain and pyref;
+     against plain, then align_reads checked as in phase 4 (its runs read
+     back as one byte an entry, tb_limit 63), and its kernel-only time;
+     then align_reads at 192/192/97 and 256/256/129 on 512 reads of
+     2 kbp, each held against plain and pyref (two bytes a run entry);
   8. fill lab: each variant of the fill-only kernel against its plain
      version at 2048 lanes, 2 windows, on the (m, n) cases of
      kernel_lab.MN_CASES (the lab's own inputs among them), and at 16384
@@ -97,7 +102,8 @@ Phases, one line each:
      then packed, and at 64/64/33 once more with the CIGARs decoded on
      one thread (api.DECODE_THREADS = 1): every alignment must equal the
      single-tile call's of phase 4 or 7 for the same pair, every tile
-     (shard) must launch its window kernel; each call's wall clock,
+     (shard) must launch its window kernel, and at W=128 both modes must
+     read back one byte a run entry; each call's wall clock,
      AlignStats stages and launches, then the same call under
      torch.profiler for the device's busy and idle share of it
      (profiling/pipeline.py);
@@ -119,7 +125,19 @@ Phases, one line each:
      each run must exit 0 (it checks its own output against pyref, CIGAR
      validity and packed against strings), its JSON line must hold every
      key of the JAX bench's line and ``card``, and each of its passes
-     (end to end, kernel-only, staged) must launch the one-word kernel.
+     (end to end, kernel-only, staged) must launch the one-word kernel;
+     each bench line gives the best strings and packed walls;
+ 15. packed assembly into pair order: api._assemble_packed_parts on the
+     bench's shape (phase 4's reads twice, 32,768 pairs in two tiles of
+     16,384 at W=64), its parts kept from one align_reads call, timed on
+     the card's host in the API's permuted order and relabelled into the
+     identity order; both must equal phase 4's strings for their pairs,
+     the identity order must not scatter and the permuted one scatter
+     once a tile.
+
+In phases 3, 4, 7, 10 and 12 a path whose runs come back as runs (tb_limit
+> 31) prints its readback bytes beside its run entries (readback_check):
+one byte an entry where tb_limit <= 63, two above.
 
 Beside phase 4's and 7's bound lines, a sol line gives the bound that
 profiling/model.py reckons for the bench tile from expected counts alone
@@ -246,10 +264,10 @@ def timed(fn, *args):
     return out, t0.elapsed_time(t1)
 
 
-def random_pairs(cfg, seed, dev, B=512, length=1000, rate=0.05):
-    """B pairs of ~length bp with substitutions and indels, staged."""
-    from scrooge_tpu_torch.ops import pack
-
+def pair_codes(seed, B, length, rate):
+    """(text (B, length+100), pattern (B, length+60), pattern lengths) as
+    2-bit codes: each pattern ~length bp of its text with substitutions
+    and indels at ``rate`` in all."""
     rng = np.random.default_rng(seed)
     T = length + 100
     text = rng.integers(0, 4, (B, T), dtype=np.uint8)
@@ -265,6 +283,15 @@ def random_pairs(cfg, seed, dev, B=512, length=1000, rate=0.05):
         q = q[: int(rng.integers(length - 50, length + 50))]
         pattern[b, : len(q)] = q
         plen[b] = len(q)
+    return text, pattern, plen
+
+
+def random_pairs(cfg, seed, dev, B=512, length=1000, rate=0.05):
+    """B pairs of ~length bp with substitutions and indels, staged."""
+    from scrooge_tpu_torch.ops import pack
+
+    text, pattern, plen = pair_codes(seed, B, length, rate)
+    T = text.shape[1]
     tlen = np.full(B, T, np.int32)
     tw = pack.pack_2bit(torch.from_numpy(text)).to(dev)
     base = torch.arange(B, dtype=torch.int64, device=dev) * (tw.shape[1] * 16)
@@ -316,6 +343,40 @@ def compare(cfg, maxw, args, label):
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, plain=want)
 
 
+def readback_check(label, cfg, stats, packed, qlens) -> dict:
+    """The bytes a call read back beside its run entries, as phase-line
+    fields: pairs go longest read first in tiles of cfg.batch_tile, each
+    tile read back in api._lane_chunks, a chunk its most runs by its
+    lanes (the runs of each pair in ``packed``); one byte an entry where
+    31 < tb_limit <= 63, two above. Raises unless ``stats`` (one or
+    several, strings and packed) hold exactly that, or when a uint8 call
+    retried pairs (their packed runs come from CIGARs, so the entries
+    cannot be counted). Token paths (tb_limit <= 31) are not checked."""
+    from scrooge_tpu_torch import api
+
+    if cfg.tb_limit <= 31:
+        return {}
+    per_entry = 1 if cfg.tb_limit <= api.U8_MAX_TB_LIMIT else 2
+    if any(x.retried_pairs for x in stats):
+        if per_entry == 1:
+            raise AssertionError(f"{label}: pairs retried, the uint8 "
+                                 "readback cannot be counted")
+        return {"readback_per_entry": "not checked (retried pairs)"}
+    runs = np.diff(packed.run_offsets)
+    order = sorted(range(len(qlens)), key=lambda i: -qlens[i])
+    entries = 0
+    for t0 in range(0, len(order), cfg.batch_tile):
+        lanes = runs[order[t0 : t0 + cfg.batch_tile]]
+        for c0, c1 in api._lane_chunks(len(lanes)):
+            entries += max(int(lanes[c0:c1].max(initial=0)), 1) * (c1 - c0)
+    got = [x.readback_bytes for x in stats]
+    if got != [per_entry * entries] * len(stats):
+        raise AssertionError(f"{label}: read back {got} bytes for {entries} "
+                             f"run entries at {per_entry} B an entry")
+    return {"run_entries": entries, "readback_bytes": got[0],
+            "readback_per_entry": per_entry}
+
+
 def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     """align_reads through the public API, strings then packed, with both
     window kernels' counts set to 0 just before and read just after;
@@ -348,16 +409,73 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     npyref, ncigar = bench.check_output(ds.genome.content,
                                         bench.pair_reads(ds.reads), cfg,
                                         strs, packed, nsample, ncigar, label)
+    readback = readback_check(label, cfg, (stats, pstats), packed,
+                              [len(r.content) for r in ds.reads
+                               for _ in r.locations])
     phase(label, W=cfg.W, K=cfg.K, O=cfg.O, pairs=n,
           launches=json.dumps({k.source: c for k, c in counts.items()}),
           retried_pairs=stats.retried_pairs,
           pyref_exact=npyref, valid_cigars=ncigar,
           wall_s=f"{wall:.3f}", aligns_per_s=f"{n / wall:.1f}",
           packed_wall_s=f"{pwall:.3f}",
-          packed_aligns_per_s=f"{n / pwall:.1f}",
+          packed_aligns_per_s=f"{n / pwall:.1f}", **readback,
           breakdown=repr(stats.breakdown()),
           packed_breakdown=repr(pstats.breakdown()))
     return counts, strs
+
+
+def pairs_path(cfg, seed, dev, B=512, length=1000, nsample=8, ncigar=128):
+    """Phase 3's align_pairs: B pairs of ~length bp (pair_codes) as
+    strings through the public API on the card, strings then packed, the
+    window kernels' counts set to 0 just before and read just after: the
+    two outputs must agree, ``nsample`` pairs equal pyref, ``ncigar``
+    CIGARs be valid and the readback hold one byte a run entry where
+    31 < tb_limit <= 63 (readback_check). Returns the launches."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch import pyref
+    from scrooge_tpu_torch.bench import check_sample, packed_cigars
+    from scrooge_tpu_torch.cigar import is_valid_cigar
+    from scrooge_tpu_torch.ops import _cuda
+
+    text, pattern, plen = pair_codes(seed, B, length, 0.05)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    texts = [acgt[t].tobytes().decode() for t in text]
+    queries = [acgt[p[:n]].tobytes().decode() for p, n in zip(pattern, plen)]
+    for k in _cuda.KERNELS:
+        k.counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strs, stats = st.align_pairs(texts, queries, cfg, return_stats=True,
+                                 device=dev)
+    wall = time.perf_counter() - t0
+    packed, pstats = st.align_pairs(texts, queries, cfg, return_stats=True,
+                                    return_packed=True, device=dev)
+    counts = {k.source: dict(k.counts) for k in _cuda.KERNELS if k.counts}
+    label = f"pairs-w{cfg.W}"
+    if [a.cigar for a in strs] != packed_cigars(packed) or not np.array_equal(
+            np.array([a.edit_distance for a in strs]), packed.edit_distances):
+        raise AssertionError(f"{label}: strings and packed output disagree")
+    sample, cigars = check_sample([len(q) for q in queries], nsample, ncigar)
+    for i in sample:
+        want = pyref.genasm(pyref.encode(texts[i]), pyref.encode(queries[i]),
+                            cfg)
+        if (strs[i].edit_distance, strs[i].cigar) != want:
+            raise AssertionError(f"{label}: pair {i} differs from pyref")
+    for i in cigars:
+        if not is_valid_cigar(strs[i].cigar, strs[i].edit_distance, texts[i],
+                              queries[i], 0):
+            raise AssertionError(f"{label}: pair {i} has an invalid CIGAR")
+    readback = readback_check(label, cfg, (stats, pstats), packed,
+                              [len(q) for q in queries])
+    phase(label, W=cfg.W, K=cfg.K, O=cfg.O, tb_limit=cfg.tb_limit, pairs=B,
+          launches=json.dumps(counts), retried_pairs=stats.retried_pairs,
+          pyref_exact=len(sample), valid_cigars=len(cigars),
+          wall_s=f"{wall:.3f}", **readback,
+          breakdown=repr(stats.breakdown()),
+          packed_breakdown=repr(pstats.breakdown()))
+    if sum(sum(c.values()) for c in counts.values()) < 2:
+        raise AssertionError(f"{label}: launches {counts}")
+    return counts
 
 
 def kernel_only(label, staged, n):
@@ -1147,6 +1265,7 @@ def pipeline_path(ds, prepared, single, tmp):
         cfg = st.AlignConfig(W=W, K=K, O=O, batch_tile=1024)
         want = single[W]
         api.DECODE_THREADS = decode_threads or threads
+        mode_stats = []
         for mode, packed in (("strings", False), ("packed", True)):
             for k in _cuda.KERNELS:
                 k.counts.clear()
@@ -1154,6 +1273,11 @@ def pipeline_path(ds, prepared, single, tmp):
                                              packed)
             launches = {k.source: dict(k.counts) for k in _cuda.KERNELS
                         if k.counts}
+            mode_stats.append(stats)
+            # the uint8 readback (W=128), checked once both modes ran
+            readback = (readback_check(f"pipeline W={W}", cfg, mode_stats,
+                                       out, [len(r.content) for r in ds.reads])
+                        if packed and isinstance(dev, str) else {})
             got = (list(zip(out.edit_distances.tolist(), packed_cigars(out)))
                    if packed else [(a.edit_distance, a.cigar) for a in out])
             equal = sum(g == (a.edit_distance, a.cigar)
@@ -1169,7 +1293,7 @@ def pipeline_path(ds, prepared, single, tmp):
                   pairs=len(got), tiles=tiles,
                   equal_to_single_tile=equal, wall_s=f"{wall:.3f}",
                   aligns_per_s=f"{len(got) / wall:.1f}",
-                  launches=json.dumps(launches),
+                  launches=json.dumps(launches), **readback,
                   breakdown=repr(stats.breakdown()),
                   window_kernels_in_trace=n_kernels,
                   window_kernel_ms_in_trace=f"{kernel_ms:.3f}",
@@ -1218,18 +1342,93 @@ def bench_path():
         launches = json.loads(next(
             ln for ln in out.stderr.splitlines()
             if ln.startswith("# launches "))[len("# launches "):])
+        walls = re.search(r" wall=([\d.]+)s packed_wall=([\d.]+)s ",
+                          out.stderr)
         phase("bench", point=point, env=json.dumps(env),
-              seconds=f"{secs:.2f}", line=json.dumps(line),
-              launches=json.dumps(launches))
+              seconds=f"{secs:.2f}",
+              strings_wall_s=walls.group(1) if walls else None,
+              packed_wall_s=walls.group(2) if walls else None,
+              line=json.dumps(line), launches=json.dumps(launches))
         for ln in out.stderr.splitlines():
             print(f"  bench[{point}] {ln}", flush=True)
-        if missing:
-            raise AssertionError(f"bench {point}: no {missing} in its line")
+        if missing or not walls:
+            raise AssertionError(f"bench {point}: no {missing} in its line "
+                                 "or no walls on its stderr")
         for run in ("end_to_end", "kernel_only", "staged"):
             if launches.get(run, {}).get(_cuda.GENASM_WINDOWS1.source,
                                          {}).get("1", 0) < 1:
                 raise AssertionError(f"bench {point}: its {run} pass never "
                                      "launched genasm_windows1.cu")
+
+
+ASSEMBLY_REPS = 5
+
+
+def assembly_path(ds, prepared, main_strs, dev):
+    """Phase 15: api._assemble_packed_parts on the bench's shape, 32,768
+    pairs of 10 kbp (phase 4's reads twice) in two tiles of 16,384 at
+    W=64, on the card's host. The parts come from one align_reads call
+    with return_packed (the function wrapped to keep its arguments): in
+    the API's own order, the length sort's permutation, and relabelled so
+    that each tile's lanes are the next pairs (the identity order). Each
+    is timed ASSEMBLY_REPS times and must equal phase 4's strings for its
+    pairs; the identity order must not scatter, the permuted one scatter
+    once a tile."""
+    import scrooge_tpu_torch as st
+    from scrooge_tpu_torch import api, native
+    from scrooge_tpu_torch.bench import packed_cigars
+
+    reads = list(ds.reads) * 2
+    cfg = st.AlignConfig(W=64, K=64, O=33, batch_tile=16384)
+    real, kept = api._assemble_packed_parts, []
+
+    def keep(n, parts, results):
+        kept.append((n, parts, results))
+        return real(n, parts, results)
+
+    api._assemble_packed_parts = keep
+    try:
+        t0 = time.perf_counter()
+        st.align_reads(prepared, reads, cfg, return_packed=True, device=dev)
+        call_s = time.perf_counter() - t0
+    finally:
+        api._assemble_packed_parts = real
+    n, parts, results = kept[0]
+    want = [(a.edit_distance, a.cigar) for a in list(main_strs) * 2]
+    lane_pairs = [i for part in parts for i in part[2]]
+    ident, pos = [], 0
+    for flat, offs, idxs, eds, failed in parts:
+        ident.append((flat, offs, list(range(pos, pos + len(idxs))), eds,
+                      failed))
+        pos += len(idxs)
+    orders = {"identity": (ident, [results[i] for i in lane_pairs],
+                           [want[i] for i in lane_pairs]),
+              "permuted": (parts, results, want)}
+    scatter = native.scatter_runs
+    for order, (ps, rs, expect) in orders.items():
+        calls = []
+        native.scatter_runs = lambda *a: calls.append(1) or scatter(*a)
+        try:
+            ms = []
+            for _ in range(ASSEMBLY_REPS):
+                t0 = time.perf_counter()
+                out = real(n, ps, rs)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            native.scatter_runs = scatter
+        got = list(zip(out.edit_distances.tolist(), packed_cigars(out)))
+        equal = sum(g == w for g, w in zip(got, expect))
+        phase("assembly", order=order, pairs=n, tiles=len(ps),
+              runs=len(out.runs), runs_mb=f"{out.runs.nbytes / 1e6:.1f}",
+              ms=" ".join(f"{x:.3f}" for x in ms),
+              scatter_calls=len(calls) // ASSEMBLY_REPS,
+              equal_to_strings=equal, call_s=f"{call_s:.3f}")
+        if equal != n or len(got) != n:
+            raise AssertionError(f"assembly ({order}): {n - equal} of {n} "
+                                 "pairs differ from the strings")
+        if len(calls) != (0 if order == "identity"
+                          else len(ps) * ASSEMBLY_REPS):
+            raise AssertionError(f"assembly ({order}): {len(calls)} scatters")
 
 
 def main() -> int:
@@ -1286,6 +1485,12 @@ def main() -> int:
         if (K == 16) != (fail_tb > 0):
             raise AssertionError(f"unrelated pairs at W={W} K={K}: "
                                  f"{fail_tb} FAIL_TB lanes")
+    # 96/96/49 (tb_limit 47) through align_pairs: uint8 runs read back
+    c96 = st.AlignConfig(W=96, K=96, O=49)
+    if pairs_path(c96, 96, dev).get(_cuda.GENASM_WINDOWS.source, {}).get(
+            2, 0) < 2:
+        raise AssertionError("align_pairs at 96/96/49 did not launch "
+                             "genasm_windows.cu at NW=2")
 
     cfg = st.AlignConfig(W=64, K=64, O=33, early_termination=True,
                          batch_tile=16384)
@@ -1397,6 +1602,9 @@ def main() -> int:
 
     # ---- 14. the bench ----
     bench_path()
+
+    # ---- 15. packed assembly into pair order ----
+    assembly_path(ds, prepared, main_strs, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -31,7 +31,8 @@ copy to the card is queued (non-blocking) before the next chunk is
 encoded; the tokens come back in up to READBACK_MAX_CHUNKS lane chunks of
 at least READBACK_CHUNK_LANES lanes into pinned memory, each trimmed to its
 own largest token count, and chunk c is decoded while chunk c+1 is still
-copying (the uint16 runs of tb_limit > 31 the same way). The port adds
+copying (the runs of tb_limit > 31 the same way: one byte a run up to
+tb_limit 63, two above). The port adds
 one thing: a chunk decodes in parts on a call's DECODE_THREADS threads
 (the native decoders release the GIL), since on the card one thread
 decoding was the longest host stage; outputs and their order are the
@@ -191,10 +192,16 @@ def _assemble_packed(results: List[Alignment]) -> PackedAlignments:
 
 def _assemble_packed_parts(n: int, parts, results) -> PackedAlignments:
     """Merge the tiles' lane-order packed payloads and the retried pairs'
-    Alignments into one pair-order PackedAlignments.
+    Alignments into one pair-order PackedAlignments (api.py:658-738).
 
-    parts: (flat, offs, idxs, eds, failed) per tile; tile lane k is pair
-    idxs[k]; failed lanes take their result from ``results``."""
+    parts: (flat, offs, idxs, eds, failed) per tile (on a mesh, per
+    shard); tile lane k is pair idxs[k]; failed lanes take their result
+    from ``results``. When nothing was retried and the parts' lanes are
+    the pairs 0..n-1 in order (reads of one length keep the length sort's
+    order), the runs are stitched with one concatenation, or returned as
+    they are from one part. Otherwise the lengths are scattered into pair
+    order and native.scatter_runs copies each part's runs to their pairs
+    without the GIL; no loop over pairs copies in Python."""
     eds_out = np.zeros(n, np.int32)
     lens = np.zeros(n, np.int64)
     retry_runs = {}
@@ -203,26 +210,51 @@ def _assemble_packed_parts(n: int, parts, results) -> PackedAlignments:
             retry_runs[i] = _runs_from_cigar(r.cigar)
             lens[i] = len(retry_runs[i])
             eds_out[i] = r.edit_distance
+    if not retry_runs and _in_pair_order(n, parts):
+        if len(parts) == 1:
+            flat, offs, _, eds, _ = parts[0]
+            return PackedAlignments(np.asarray(eds[:n], np.int32), offs,
+                                    flat[: int(offs[-1])])
+        out_offs = np.zeros(n + 1, np.int64)
+        flats, pos, base = [], 0, 0
+        for flat, offs, idxs, eds, _ in parts:
+            k = len(idxs)
+            out_offs[pos + 1 : pos + k + 1] = offs[1:] + base
+            eds_out[pos : pos + k] = eds[:k]
+            flats.append(flat[: int(offs[-1])])
+            pos, base = pos + k, base + int(offs[-1])
+        return PackedAlignments(eds_out, out_offs, np.concatenate(flats))
     sel = []
     for flat, offs, idxs, eds, failed in parts:
         k = len(idxs)
         ok = np.asarray(failed[:k]) == 0
         dst = np.asarray(idxs, np.int64)[ok]
-        src = offs[:k][ok]
         src_lens = (offs[1 : k + 1] - offs[:k])[ok]
         lens[dst] = src_lens
         eds_out[dst] = np.asarray(eds[:k])[ok]
-        sel.append((flat, src, dst, src_lens))
+        sel.append((flat, offs[:k][ok], dst, src_lens))
     out_offs = np.zeros(n + 1, np.int64)
     np.cumsum(lens, out=out_offs[1:])
     out = np.empty(int(out_offs[-1]), np.uint16)
     for flat, src, dst, src_lens in sel:
-        for o, i, ln in zip(src.tolist(), out_offs[dst].tolist(),
-                            src_lens.tolist()):
-            out[i : i + ln] = flat[o : o + ln]
+        native.scatter_runs(flat, src, dst, src_lens, out, out_offs)
     for i, runs in retry_runs.items():
         out[out_offs[i] : out_offs[i] + len(runs)] = runs
     return PackedAlignments(eds_out, out_offs, out)
+
+
+def _in_pair_order(n: int, parts) -> bool:
+    """Whether the parts' lanes are pairs 0..n-1 in order, none failed,
+    each part's offsets one a lane and one more (api.py:680-697)."""
+    pos = 0
+    for _, offs, idxs, _, failed in parts:
+        k = len(idxs)
+        if (offs.shape[0] != k + 1 or np.asarray(failed[:k]).any()
+                or not np.array_equal(np.asarray(idxs),
+                                      np.arange(pos, pos + k))):
+            return False
+        pos += k
+    return pos == n and bool(parts)
 
 
 def _retry_pyref(cfg, text_codes: np.ndarray, pattern_codes: np.ndarray,
@@ -281,6 +313,8 @@ UPLOAD_CHUNK_ROWS = 4096
 # least READBACK_CHUNK_LANES lanes each (api.py:378-381).
 READBACK_CHUNK_LANES = 4096
 READBACK_MAX_CHUNKS = 8
+# the largest tb_limit whose run counts fit the 6 bits of a uint8 run
+U8_MAX_TB_LIMIT = 63
 # threads that decode a call's CIGARs, each part at least
 # DECODE_MIN_LANES lanes: the native decoders release the GIL, and one
 # thread decoding strings was the longest host stage of a call
@@ -342,7 +376,9 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
     lane order with ``packed_out``. The meta readback is the sync that
     ends the engine's time (``core_ns``); its exact run and window maxima
     size the compaction, so no lane can overflow it. The compacted tokens
-    (or uint16 runs when tb_limit > 31) are read back in _lane_chunks,
+    (tb_limit <= 31), uint8 runs (op << 6 | count, 31 < tb_limit <= 63) or
+    uint16 runs (tb_limit > 63), as in the JAX package (api.py:540-586),
+    are read back in _lane_chunks,
     each chunk's columns trimmed to its own largest lane, and chunk c is
     decoded while the copies of the chunks after it run (api.py:371-436,
     :566-640); in packed mode the token chunks decode into one batch-wide
@@ -364,6 +400,8 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
     ent, cnt = res.entries[:wcap], res.counts[:wcap]
     chunks = _lane_chunks(B)
     use_tokens = tokens.supports(cfg)
+    # one byte a run where tb_limit bounds every count below 64 (api.py:550)
+    use_u8 = not use_tokens and cfg.tb_limit <= U8_MAX_TB_LIMIT
     if use_tokens:
         toks, _, lane_tot = tokens.compact_tokenize(ent, cnt, cap, ne)
         lane_tot = lane_tot.cpu().numpy()
@@ -372,7 +410,9 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
         pieces = [dev_out[c0:c1, :int(lane_tot[c0:c1].max(initial=0))]
                   for c0, c1 in chunks]
     else:
-        dev_out, _ = compact.compact_entries(ent[:, :ne], cnt, cap)
+        compactor = (compact.compact_entries_u8 if use_u8
+                     else compact.compact_entries)
+        dev_out, _ = compactor(ent[:, :ne], cnt, cap)
         lane_tot = totals
         pieces = [dev_out[:max(int(totals[c0:c1].max(initial=0)), 1), c0:c1]
                   for c0, c1 in chunks]
@@ -392,15 +432,18 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
             return len(native.tokens_to_runs(
                 part, lane_tot[a:b], out=flat[bound[a]:],
                 counts=counts[a:b])[0])
-    elif packed_out:
-        def decode(part, a, b):
-            return native.extract_runs(part.view(np.uint16), lane_tot[a:b])
     elif use_tokens:
         def decode(part, a, b):
             return native.format_tokens(part, lane_tot[a:b])
     else:
+        # the host copy of a chunk of (cap, B) int16 or uint8 runs is
+        # contiguous: the native walk reads it with the chunk's stride
+        fmt = (native.extract_runs if packed_out else
+               native.format_cigars_u8 if use_u8 else native.format_cigars)
+
         def decode(part, a, b):
-            return native.format_cigars(part.view(np.uint16), lane_tot[a:b])
+            return fmt(part if use_u8 else part.view(np.uint16),
+                       lane_tot[a:b])
     parts = []
     wait_ns = time.perf_counter_ns() - tr  # the copies' enqueue
     for (c0, _), (host, done) in zip(chunks, staged):

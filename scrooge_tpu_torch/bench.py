@@ -362,6 +362,7 @@ def run(k: Knobs) -> None:
             else "link[not measured on the cpu]")
     print(f"# pairs={stats.num_pairs} kernel={out['value']:.1f} aligns/s "
           f"core={stats.core_ns / 1e9:.3f}s wall={wall_s:.3f}s "
+          f"packed_wall={packed_wall_s:.3f}s "
           f"retried={stats.retried_pairs} "
           f"end_to_end={out['end_to_end_aligns_per_second']:.1f} aligns/s "
           f"end_to_end_packed="

@@ -1,13 +1,16 @@
 """Native (C++) host helpers: read encoding and CIGAR output.
 
-The port's own copy of the five functions of ``scrooge_tpu.native`` it
-calls. ``cigar_strings.cpp`` is a plain shared library bound with ctypes
-(``format_cigars``, ``extract_runs``); ``scroogext.cpp`` is a CPython
-extension (``encode_pack_strs``, ``format_tokens``, ``tokens_to_runs``).
+The port's own copy of the functions of ``scrooge_tpu.native`` it calls.
+``cigar_strings.cpp`` is a plain shared library bound with ctypes
+(``format_cigars``, ``format_cigars_u8``, ``extract_runs`` of uint16 or
+uint8 runs, ``affine_scores``); ``scroogext.cpp`` is a CPython extension
+(``encode_pack_strs``, ``format_tokens``, ``tokens_to_runs``,
+``scatter_runs``).
 
 Each is built with g++ at first use (``buildcache``) and loaded from
 there. A failed build raises: there is no Python fallback. Nothing is
-built at import time.
+built at import time. Unlike the JAX package's helpers, none returns
+None for a missing library or a bad input: each raises.
 """
 
 from __future__ import annotations
@@ -54,14 +57,21 @@ class _NativeBuild:
 
 def _load_lib(path):
     lib = ctypes.CDLL(path)
-    lib.format_cigars.restype = ctypes.c_int
-    lib.format_cigars.argtypes = [
+    for fn in (lib.format_cigars, lib.format_cigars8):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    for fn in (lib.extract_runs, lib.extract_runs8):
+        fn.restype = None
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+    lib.affine_scores.restype = None
+    lib.affine_scores.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-    lib.extract_runs.restype = None
-    lib.extract_runs.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p]
     return lib
 
 
@@ -86,7 +96,7 @@ _EXT = _NativeBuild("scroogext.cpp", python_ext=True)
 
 
 def get_lib():
-    """The ctypes library (format_cigars, extract_runs); builds it first."""
+    """The ctypes library (cigar_strings.cpp); builds it first."""
     return _LIB.load(_load_lib)
 
 
@@ -149,33 +159,101 @@ def tokens_to_runs(tokens: np.ndarray, totals: np.ndarray, out=None,
 
 
 def extract_runs(entries: np.ndarray, totals: np.ndarray) -> np.ndarray:
-    """Compacted (cap, B) uint16 runs -> one flat uint16 array with lane
-    b's valid runs at [cumsum(totals)[b-1], cumsum(totals)[b])."""
-    entries = np.ascontiguousarray(entries, np.uint16)
+    """Compacted (cap, B) runs, uint16 (op << 12 | count) or uint8 (op << 6
+    | count, widened on the way) -> one flat uint16 array with lane b's
+    valid runs at [cumsum(totals)[b-1], cumsum(totals)[b])."""
+    if entries.dtype == np.uint8:
+        fn = get_lib().extract_runs8
+    elif entries.dtype == np.uint16:
+        fn = get_lib().extract_runs
+    else:
+        raise TypeError(f"extract_runs takes uint8 or uint16 runs, not "
+                        f"{entries.dtype}")
+    entries = np.ascontiguousarray(entries)
     totals = np.ascontiguousarray(totals, np.int32)
     cap, B = entries.shape
     kept = np.minimum(totals, cap).astype(np.int64)
     offs = np.zeros(B, np.int64)
     np.cumsum(kept[:-1], out=offs[1:])
     out = np.empty(int(kept.sum()), np.uint16)
-    get_lib().extract_runs(entries.ctypes.data, cap, B, totals.ctypes.data,
-                           offs.ctypes.data, out.ctypes.data)
+    fn(entries.ctypes.data, cap, B, totals.ctypes.data, offs.ctypes.data,
+       out.ctypes.data)
     return out
+
+
+def _format(fn, entries: np.ndarray, totals: np.ndarray,
+            width: int) -> List[str]:
+    """CIGAR strings of (cap, B) runs through ``fn`` (format_cigars or
+    format_cigars8), ``width`` the most chars one run takes."""
+    totals = np.ascontiguousarray(totals, np.int32)
+    cap, B = entries.shape
+    stride = max(int(totals.max(initial=0)), 1) * width
+    out = np.empty((B, stride), np.uint8)
+    lens = np.empty(B, np.int32)
+    if fn(entries.ctypes.data, cap, B, totals.ctypes.data, out.ctypes.data,
+          stride, lens.ctypes.data) != 0:
+        raise RuntimeError("CIGAR formatting overflowed its output rows")
+    flat = out.tobytes()
+    return [flat[b * stride : b * stride + int(lens[b])].decode("ascii")
+            for b in range(B)]
 
 
 def format_cigars(entries: np.ndarray, totals: np.ndarray) -> List[str]:
     """Compacted (cap, B) uint16 runs -> CIGAR strings."""
+    return _format(get_lib().format_cigars,
+                   np.ascontiguousarray(entries, np.uint16), totals,
+                   5)  # "4095=" is 5 chars
+
+
+def format_cigars_u8(entries: np.ndarray, totals: np.ndarray) -> List[str]:
+    """Compacted (cap, B) uint8 runs (op << 6 | count) -> CIGAR strings."""
+    return _format(get_lib().format_cigars8,
+                   np.ascontiguousarray(entries, np.uint8), totals,
+                   3)  # "63=" is 3 chars
+
+
+def affine_scores(entries: np.ndarray, totals: np.ndarray, match: int = 2,
+                  mismatch: int = 4, gap_open: int = 4,
+                  gap_extend: int = 2) -> np.ndarray:
+    """Affine-gap score (int64) of each lane of compacted (cap, B) uint16
+    runs: +match a matched base, -mismatch a mismatched one, -(gap_open +
+    gap_extend * length) a gap run."""
     entries = np.ascontiguousarray(entries, np.uint16)
     totals = np.ascontiguousarray(totals, np.int32)
     cap, B = entries.shape
-    stride = max(int(totals.max(initial=0)), 1) * 5  # "4095=" is 5 chars
-    out = np.empty((B, stride), np.uint8)
-    lens = np.empty(B, np.int32)
-    rc = get_lib().format_cigars(entries.ctypes.data, cap, B,
-                                 totals.ctypes.data, out.ctypes.data, stride,
-                                 lens.ctypes.data)
-    if rc != 0:
-        raise RuntimeError("format_cigars overflowed its output rows")
-    flat = out.tobytes()
-    return [flat[b * stride : b * stride + int(lens[b])].decode("ascii")
-            for b in range(B)]
+    out = np.empty(B, np.int64)
+    get_lib().affine_scores(entries.ctypes.data, cap, B, totals.ctypes.data,
+                            match, mismatch, gap_open, gap_extend,
+                            out.ctypes.data)
+    return out
+
+
+def scatter_runs(flat: np.ndarray, offs: np.ndarray, idx: np.ndarray,
+                 lens: np.ndarray, out: np.ndarray,
+                 out_offs: np.ndarray) -> None:
+    """Copy source pair k's ``lens[k]`` uint16 runs at ``flat[offs[k]:]``
+    to ``out[out_offs[idx[k]]:]``, for every k, without the GIL: the
+    permutation that puts lane-order packed runs into pair order. ``out``
+    is a C-contiguous uint16 array; every range must lie inside ``flat``
+    and ``out`` (checked first: the copy itself checks nothing)."""
+    flat = np.ascontiguousarray(flat, np.uint16)
+    offs = np.ascontiguousarray(offs, np.int64)
+    idx = np.ascontiguousarray(idx, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    out_offs = np.ascontiguousarray(out_offs, np.int64)
+    if out.dtype != np.uint16 or not out.flags.c_contiguous:
+        raise ValueError("out must be a C-contiguous uint16 array")
+    n = len(idx)
+    if len(offs) != n or len(lens) != n:
+        raise ValueError(f"{n} destinations, {len(offs)} offsets and "
+                         f"{len(lens)} lengths")
+    if n:
+        if (idx.min() < 0 or idx.max() >= len(out_offs) or lens.min() < 0
+                or offs.min() < 0 or (offs + lens).max() > len(flat)):
+            raise ValueError("scatter_runs: a source range lies outside flat")
+        dst = out_offs[idx]
+        if dst.min() < 0 or (dst + lens).max() > len(out):
+            raise ValueError("scatter_runs: a destination lies outside out")
+    get_ext().scatter_runs(flat.ctypes.data, offs.ctypes.data,
+                           idx.ctypes.data, n, lens.ctypes.data,
+                           out.ctypes.data, out_offs.ctypes.data)

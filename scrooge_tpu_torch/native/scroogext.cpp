@@ -1,13 +1,15 @@
 // CPython extension: read encoding and CIGAR-token decoding on the host.
 //
-// The port's copy of the three functions of scrooge_tpu/native/scroogext.cpp
+// The port's copy of the four functions of scrooge_tpu/native/scroogext.cpp
 // that it calls:
 // - encode_pack_into: ASCII reads straight out of the CPython str objects
 //   (1-byte kind, no copies) to 2-bit codes, 16 per uint32 word, char k of
 //   a word in bits [2k, 2k+2), with a SWAR/BMI2 inner loop;
 // - format_tokens / tokens_to_runs: the device's CIGAR token stream (format
 //   in ops/tokens.py) to CIGAR strings, built directly as PyUnicode
-//   objects, or to flat packed uint16 runs.
+//   objects, or to flat packed uint16 runs;
+// - scatter_runs: the permutation copy that puts the tiles' packed runs,
+//   in lane order, into pair order.
 //
 // Roles in the reference: ascii_to_zero_based_string
 // (genasm_cpu.cpp:462-493), the TwoBitArray packers (genasm_gpu.cu:640-685)
@@ -322,6 +324,31 @@ static PyObject* tokens_to_runs(PyObject*, PyObject* args) {
     return PyLong_FromLongLong((long long)pos);
 }
 
+// scatter_runs(flat_addr, offs_addr, idx_addr, n, lens_addr, out_addr,
+//              out_offs_addr) -> None
+// Source pair k (k = 0..n-1) holds lens[k] uint16 runs at
+// flat[offs[k]:offs[k]+lens[k]] and lands at out[out_offs[idx[k]]].
+static PyObject* scatter_runs(PyObject*, PyObject* args) {
+    unsigned long long flat_addr, offs_addr, idx_addr, lens_addr, out_addr,
+        out_offs_addr;
+    Py_ssize_t n;
+    if (!PyArg_ParseTuple(args, "KKKnKKK", &flat_addr, &offs_addr, &idx_addr,
+                          &n, &lens_addr, &out_addr, &out_offs_addr))
+        return nullptr;
+    const uint16_t* flat = (const uint16_t*)(uintptr_t)flat_addr;
+    const int64_t* offs = (const int64_t*)(uintptr_t)offs_addr;
+    const int64_t* idx = (const int64_t*)(uintptr_t)idx_addr;
+    const int64_t* lens = (const int64_t*)(uintptr_t)lens_addr;
+    uint16_t* out = (uint16_t*)(uintptr_t)out_addr;
+    const int64_t* out_offs = (const int64_t*)(uintptr_t)out_offs_addr;
+    Py_BEGIN_ALLOW_THREADS
+    for (Py_ssize_t k = 0; k < n; k++)
+        memcpy(out + out_offs[idx[k]], flat + offs[k],
+               (size_t)lens[k] * sizeof(uint16_t));
+    Py_END_ALLOW_THREADS
+    Py_RETURN_NONE;
+}
+
 static PyMethodDef Methods[] = {
     {"encode_pack_into", encode_pack_into, METH_VARARGS,
      "ASCII -> 2-bit uint32-word rows straight from str objects."},
@@ -329,6 +356,8 @@ static PyMethodDef Methods[] = {
      "CIGAR token stream (B, capT) -> list of CIGAR strings."},
     {"tokens_to_runs", tokens_to_runs, METH_VARARGS,
      "CIGAR token stream -> flat packed uint16 runs + per-lane counts."},
+    {"scatter_runs", scatter_runs, METH_VARARGS,
+     "Permutation-copy packed runs into their final pair order."},
     {nullptr, nullptr, 0, nullptr}};
 
 static struct PyModuleDef Module = {PyModuleDef_HEAD_INIT, "_scrooge_torch_ext",

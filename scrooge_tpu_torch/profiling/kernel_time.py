@@ -3,8 +3,9 @@
 Port of scrooge_tpu/profiling/kernel_time.py:22-94: stage one read-mapping
 batch on the device once, then time only engine launches with CUDA
 events, N launches per sample and one synchronise; ``kernel_rate_samples``
-gives the samples as aligns/second, as the sweeps record them. There is
-no CPU fallback: a device time needs a device.
+gives the samples as aligns/second, as the sweeps record them, and
+``kernel_rate`` their median. There is no CPU fallback: a device time
+needs a device.
 
 As a script it times the engine on the bench's dataset at several tiles,
 in turns, which is how the bench's default kernel tile was chosen:
@@ -60,6 +61,8 @@ def engine_ms(staged, reps: int = 3, groups: int = 3):
     ``reps`` calls, after one warm-up call. The events are recorded on
     the staged tensors' card, whichever card is current."""
     cfg, maxw, args, _ = staged
+    if not args[3].is_cuda:
+        raise RuntimeError("kernel timing needs a CUDA device")
     with torch.cuda.device(args[3].device):
         engine.align_windows(cfg, maxw, *args)
         samples = []
@@ -81,6 +84,12 @@ def kernel_rate_samples(staged, reps: int = 4, groups: int = 3):
     (scrooge_tpu/profiling/kernel_time.py:62)."""
     n = staged[3]
     return [n * 1e3 / ms for ms in engine_ms(staged, reps, groups)]
+
+
+def kernel_rate(staged, reps: int = 4) -> float:
+    """Median engine-only aligns/second over 3 sample groups
+    (kernel_rate_samples; scrooge_tpu/profiling/kernel_time.py:91-94)."""
+    return float(np.median(kernel_rate_samples(staged, reps)))
 
 
 def main(argv=None) -> int:

@@ -31,9 +31,22 @@ give identical output by construction.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 from .config import AlignConfig
+
+# SCROOGE_DEBUG=1 turns on the reference's DEBUG-gated traceback dead-end
+# check (genasm_cpu.cpp:307-385): every '=' fallback step must be justified
+# by a zero in the DP table (can_mat), or the traceback has left every
+# optimal path, a table fault that is then caught where it happens.
+DEBUG = bool(int(os.environ.get("SCROOGE_DEBUG", "0") or "0"))
+
+
+class TracebackDeadEnd(AssertionError):
+    """The traceback reached a state on no optimal path (the reference's
+    assert(false), genasm_cpu.cpp:362-385)."""
+
 
 _ENCODE = {"A": 0, "a": 0, "C": 1, "c": 1, "G": 2, "g": 2, "T": 3, "t": 3}
 
@@ -189,6 +202,7 @@ def genasm_tb(n: int, m: int, R: _RTable, window_edit_distance: int,
             break
         i_limit = i >= n
         d_limit = d == 0
+        can_mat = True
         if j < m - 1:
             if sene:
                 can_ins = (not d_limit) and R.zero_at(i, d - 1, j + 1)
@@ -196,14 +210,24 @@ def genasm_tb(n: int, m: int, R: _RTable, window_edit_distance: int,
                            and R.zero_at(i + 1, d - 1, j))
                 can_sub = ((not d_limit) and (not i_limit)
                            and R.zero_at(i + 1, d - 1, j + 1))
+                if DEBUG:  # genasm_cpu.cpp:325-326
+                    can_mat = (not i_limit) and R.zero_at(i + 1, d, j + 1)
             else:
                 can_ins = R.zero_at(i, d, j, EDGE_INS)
                 can_del = R.zero_at(i, d, j, EDGE_DEL)
                 can_sub = R.zero_at(i, d, j + 1, EDGE_DEL)
+                if DEBUG:  # genasm_cpu.cpp:332-333
+                    can_mat = R.zero_at(i, d, j, EDGE_MAT)
         else:
             can_ins = not d_limit
             can_del = False
             can_sub = (not d_limit) and (not i_limit)
+            if DEBUG:  # genasm_cpu.cpp:341-342
+                can_mat = d == 0
+
+        if DEBUG and not (can_ins or can_del or can_sub or can_mat):
+            raise TracebackDeadEnd(  # genasm_cpu.cpp:362-385
+                f"traceback dead end at i={i} j={j} d={d} n={n} m={m}")
 
         if can_ins:
             j += 1

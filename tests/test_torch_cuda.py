@@ -279,6 +279,31 @@ def test_api_on_cuda(cuda):
     assert on_card == st.align_pairs(texts, queries, device="cpu")
 
 
+def test_w128_uint8_readback_packed_equals_strings_on_cuda(cuda):
+    """At W=128 O=65 (tb_limit 63) the runs come back from the card as
+    one byte an entry: packed equals strings, both equal the CPU's, and
+    readback_bytes is the tile's most runs times its lanes."""
+    from scrooge_tpu_torch.utils.simulate import simulate_dataset
+
+    ds = simulate_dataset(genome_len=100_000, num_reads=300, read_len=2000,
+                          accuracy=0.95, seed=5)
+    cfg = st.AlignConfig(W=128, K=128, O=65, batch_tile=512)
+    kern = _cuda.GENASM_WINDOWS
+    before = kern.counts[2]
+    strs, stats = st.align_reads(ds.genome, ds.reads, cfg, return_stats=True,
+                                 device=cuda)
+    packed, pstats = st.align_reads(ds.genome, ds.reads, cfg,
+                                    return_stats=True, return_packed=True,
+                                    device=cuda)
+    assert kern.counts[2] - before == 2
+    assert packed.to_alignments() == strs
+    assert strs[:40] == st.align_reads(ds.genome, ds.reads[:40], cfg,
+                                       device="cpu")
+    assert stats.retried_pairs == 0
+    entries = int(np.diff(packed.run_offsets).max()) * len(strs)
+    assert stats.readback_bytes == pstats.readback_bytes == entries
+
+
 def test_mesh_on_one_card_equals_one_device(cuda):
     """Two shards on two streams of one card (and a shard of each tile
     per card where there are more) give the one-device outputs, in

@@ -88,6 +88,18 @@ for device in ("cpu", ["cpu"] * 2):
     got = st.align_pairs(texts, reads_, tiled, device=device)
     assert [(x.edit_distance, x.cigar) for x in got] == [
         (0, "31=31=18=")] * 300, got[:2]
+# uint8 runs (31 < tb_limit <= 63), the second read longer than the first:
+# the length sort permutes the pairs and the packed runs are scattered
+import numpy as np
+w128 = st.AlignConfig(W=128, K=128, O=65)
+texts = ["ACGTTGCA" * 30] * 2
+reads_ = ["ACGTTGCA" * 15, "ACGTTGCA" * 25]
+p, s8 = st.align_pairs(texts, reads_, w128, return_stats=True,
+                       return_packed=True, device="cpu")
+assert p.to_alignments() == st.align_pairs(texts, reads_, w128,
+                                           device="cpu"), p.to_alignments()
+assert [a.edit_distance for a in p.to_alignments()] == [0, 0]
+assert s8.readback_bytes == 2 * int(np.diff(p.run_offsets).max()), s8
 assert library_example.main(["--device", "cpu"]) == 0
 assert mesh_example.main(["--device", "cpu"]) == 0
 assert "matplotlib" not in sys.modules  # plots and cigar_tools.inspect load it

@@ -13,8 +13,9 @@ Phases, one line each:
      the same device tensors, 512 pairs of ~1 kbp at W/K/O 64/64/33,
      32/32/17, 96/96/49, 128/128/65, 128/128/2 (two traceback mask words,
      every R word stored), 192/192/97 and 256/256/129 (W <= 64 on the
-     one-word kernel genasm_windows1.cu, two to four words on
-     genasm_windows.cu); then 512 unrelated pairs of 1 kbp at 64/64/33
+     one-word kernel genasm_windows1.cu, two and three words on
+     genasm_windows.cu, four on genasm_windows_wide.cu, a warp a pair at
+     G = 4); then 512 unrelated pairs of 1 kbp at 64/64/33
      and 128/128/65 (a quarter of the texts run out: rows up to K and the
      row pair that computes row K+1) and at 64/16/33 and 128/16/65
      (FAIL_TB lanes); then 512 of those ~1 kbp pairs as strings through
@@ -36,6 +37,10 @@ Phases, one line each:
      back as one byte an entry, tb_limit 63), and its kernel-only time;
      then align_reads at 192/192/97 and 256/256/129 on 512 reads of
      2 kbp, each held against plain and pyref (two bytes a run entry);
+     then the benchmark cell's tile, 256/256/129 on the first 1,024 of
+     phase 4's reads (one tile, the wide kernel at G = 4): kernel against
+     plain, align_reads checked as in phase 4 with only the wide kernel
+     launching at key 4, its kernel-only time and its bound;
   8. fill lab: each variant of the fill-only kernel against its plain
      version at 2048 lanes, 2 windows, on the (m, n) cases of
      kernel_lab.MN_CASES (the lab's own inputs among them), and at 16384
@@ -113,7 +118,7 @@ Phases, one line each:
      64, 128, 192 and 256, the unrelated pairs of phase 3, and 64 x 2 kbp
      at W = 320, 512, 1024 and 2048 at a reduced K; ET on against ET off
      on the bench tile at W=64 and W=128 and on 1,024 bench reads at
-     W=512, in turns with CUDA events, each beside its bound (the ET-off
+     W=256 and W=512, in turns with CUDA events, each beside its bound (the ET-off
      bound from the ET-on plain run's count of one row's cells, times
      K+1) and its launches; then every path of phases 4, 7 and 10 again
      through align_reads with ET off, counts set to 0 just before: the
@@ -171,7 +176,8 @@ WINDOWS_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows.cu"
 WINDOWS1_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows1.cu"
 WINDOWS_REPLACES = "scrooge_tpu/ops/engine_pallas.py:901"
 WIDE_SOURCE = "scrooge_tpu_torch/csrc/genasm_windows_wide.cu"
-# no pallas_call: the JAX package runs W > 256 on its XLA engine
+# no pallas_call above four words: the JAX package runs W > 256 on its
+# XLA engine (at four words the wide kernel replaces WINDOWS_REPLACES)
 WIDE_REPLACES = "scrooge_tpu/ops/engine_xla.py:105"
 LAB_SOURCE = "scrooge_tpu_torch/csrc/genasm_fill_lab.cu"
 LAB_REPLACES = "tools/kernel_lab.py:107"
@@ -732,7 +738,7 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp, paths):
     wide = _cuda.GENASM_WINDOWS_WIDE
     ptxas = ptxas_summary(wide.build_log)
     phase("wide-ptxas", source=WIDE_SOURCE, ptxas=repr(ptxas))
-    for g in (8, 16, 32):
+    for g in (4, 8, 16, 32):
         for et in ("true", "false"):
             if not re.search(rf"genasm_windows_wide_kernel<{g}, {et}>: \d+ "
                              "regs, 0 B spill", ptxas):
@@ -828,7 +834,7 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp, paths):
     phase("sweep", rc=rc, seconds=f"{time.perf_counter() - t0:.2f}",
           rows=repr([(r["W"], r["early termination"], r["batch"],
                       r["aligns/second"], r["engine"]) for r in rows]))
-    want = {("256", "genasm_windows"), ("512", "genasm_windows_wide")}
+    want = {("256", "genasm_windows_wide"), ("512", "genasm_windows_wide")}
     got = {(r["W"], r["early termination"], r["engine"]) for r in rows
            if float(r["aligns/second"]) > 0}
     if rc != 0 or got != {(w, et, e) for w, e in want
@@ -852,7 +858,7 @@ def wide_windows(ds, prepared, small, sprep, dev, ops_rate, tmp, paths):
 def window_entry(cfg, nw) -> dict:
     """The kernels-line name, source and replaced kernel of the window
     kernel instantiation the config launches: genasm_windows1[NW=1],
-    genasm_windows[NW=2..4] or genasm_windows_wide[NW=8/16/32] (its G),
+    genasm_windows[NW=2..3] or genasm_windows_wide[NW=4/8/16/32] (its G),
     with ',ET=off' without early termination."""
     from scrooge_tpu_torch.ops import _cuda, engine
 
@@ -863,6 +869,8 @@ def window_entry(cfg, nw) -> dict:
                                WINDOWS_REPLACES),
         _cuda.GENASM_WINDOWS_WIDE: ("genasm_windows_wide", WIDE_SOURCE,
                                     WIDE_REPLACES)}[engine.window_kernel(cfg)]
+    if nw == 4:  # the wide kernel in the Pallas kernel's place
+        replaces = WINDOWS_REPLACES
     et = "" if cfg.early_termination else ",ET=off"
     return {"name": f"{base}[NW={nw}{et}]", "route": "cuda",
             "source": source, "replaces": replaces}
@@ -1440,7 +1448,8 @@ def main() -> int:
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch.ops import _cuda, engine
     from scrooge_tpu_torch.profiling import kernel_time, model
-    from scrooge_tpu_torch.utils.simulate import simulate_dataset
+    from scrooge_tpu_torch.utils.simulate import (SimulatedDataset,
+                                                  simulate_dataset)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1544,10 +1553,24 @@ def main() -> int:
         counts[nw], strs = drive_path(f"wide-path-w{W}", c, small, sprep,
                                       dev, 4, 128)
         paths[nw] = (c, small, sprep, strs)
+    # the benchmark cell's tile (w256_truth's shape): 1,024 bench reads
+    c256 = st.AlignConfig(W=256, K=256, O=129, batch_tile=1024)
+    sub256 = SimulatedDataset(genome=ds.genome, reads=ds.reads[:1024])
+    st256 = kernel_time.stage_mapped(prepared, sub256.reads, c256, dev)
+    cell = compare(c256, st256[1], st256[2], "w256 cell tile")
+    cell_counts, _ = drive_path("w256-cell-path", c256, sub256, prepared,
+                                dev, 4, 128)
+    # one launch a call (strings, packed) at key 4, of the wide kernel only
+    if cell_counts != {k: ({4: 2} if k is _cuda.GENASM_WINDOWS_WIDE else {})
+                       for k in cell_counts}:
+        raise AssertionError(f"the W=256 cell tile's launches: {cell_counts}")
+    kernel_only("w256-kernel-only", st256, len(sub256.reads))
 
     kernels = []
     rows = [(nw, engine.window_kernel(c), c, sst, cmp, counts[nw])
             for nw, (c, sst, cmp) in sorted(windows.items())]
+    rows.append((4, _cuda.GENASM_WINDOWS_WIDE, c256, st256, cell,
+                 cell_counts))
     for nw, kern, c, sst, cmp, cnt in rows:
         launches = cnt[kern].get(nw, 0)
         entry = window_entry(c, nw)
@@ -1597,6 +1620,7 @@ def main() -> int:
     # ---- 13. early termination off ----
     tiles = {"bench tile W=64": (cfg, staged, main_tile["plain"]),
              "bench tile W=128": (wcfg, wstaged, wide_tile["plain"]),
+             "1024 bench reads W=256": (c256, st256, cell["plain"]),
              "1024 bench reads W=512": w512}
     kernels += et_off(tiles, paths, dev, ops_rate)
 

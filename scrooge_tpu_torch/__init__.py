@@ -5,8 +5,8 @@ same two interfaces, its own copies of the configuration, data model,
 scalar oracle and native host helpers, and the same results bit for bit
 for W <= 2048. The window engine is a hand-written CUDA kernel for sm_90a
 (``csrc/genasm_windows1.cu`` for one-word bitvectors,
-``csrc/genasm_windows.cu`` for two to four words,
-``csrc/genasm_windows_wide.cu`` for five to 32) beside a plain torch
+``csrc/genasm_windows.cu`` for two and three words,
+``csrc/genasm_windows_wide.cu`` for four to 32) beside a plain torch
 version that CPU tensors run. This package imports ``torch``, never ``jax``
 and nothing of ``scrooge_tpu``.
 """

@@ -38,6 +38,12 @@ one thing: a chunk decodes in parts on a call's DECODE_THREADS threads
 decoding was the longest host stage; outputs and their order are the
 same either way.
 
+The card's peak memory does not hang on how the two threads' timing
+falls: a launch's scratch and a tile's meta and compaction buffers are
+made under the device's ``engine.transient_lock``, so never both at
+once, and the caller lets go of tile n's device results once the worker
+has finished it, before tile n+2 launches.
+
 ``device`` may name a mesh (parallel/mesh.py; the mesh branches of
 scrooge_tpu/api.py:998-1090): then each tile is split by ``shard_lanes``,
 each shard is uploaded and launched on a host thread and a stream of its
@@ -60,6 +66,7 @@ import os
 import sys
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import ExitStack
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -414,99 +421,113 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
     the copies; format_ns (strings only, as in the JAX package) the rest
     of the readback: the decode not hidden under those waits. The stages
     are spans of ``call``'s tile ``tile`` (profiling/spans.py)."""
+    # the meta and compaction buffers are made under the device's
+    # transient_lock, which a launch's scratch takes too, and go back to
+    # the allocator as soon as the copies are queued (in stream order)
+    lock = engine.transient_lock(res.entries.device)
     with span("kernel_wait", stats, "kernel_wait_ns", call, tile) as sync:
-        meta = compact.batch_meta(res).cpu().numpy()
+        with lock:
+            meta = compact.batch_meta(res)
+        meta = meta.cpu().numpy()
     stats.core_ns += sync.end - tns
     if call is not None:
         call.synced(sync.end)
     eds, totals, failed, wmax, wused = meta
     stats.count_fail_reasons(failed)
 
-    with span("compact", stats, "compact_ns", call, tile):
-        B = len(eds)
-        cap = max(int(totals.max(initial=0)), 1)
-        ne = max(int(wmax.max(initial=0)), 1)
-        wcap = max(int(wused.max(initial=0)), 1)
-        ent, cnt = res.entries[:wcap], res.counts[:wcap]
-        chunks = _lane_chunks(B)
-        use_tokens = tokens.supports(cfg)
-        # one byte a run where tb_limit bounds every count below 64
-        # (api.py:550)
-        use_u8 = not use_tokens and cfg.tb_limit <= U8_MAX_TB_LIMIT
-        if use_tokens:
-            toks, _, lane_tot = tokens.compact_tokenize(ent, cnt, cap, ne)
-            lane_tot = lane_tot.cpu().numpy()
-            capT = max(int(lane_tot.max(initial=0)), 1)
-            # (B, capT) lane-major
-            dev_out = tokens.compact_tokens(toks, capT)
-            pieces = [dev_out[c0:c1, :int(lane_tot[c0:c1].max(initial=0))]
-                      for c0, c1 in chunks]
-        else:
-            compactor = (compact.compact_entries_u8 if use_u8
-                         else compact.compact_entries)
-            dev_out, _ = compactor(ent[:, :ne], cnt, cap)
-            lane_tot = totals
-            pieces = [dev_out[:max(int(totals[c0:c1].max(initial=0)), 1),
-                              c0:c1]
-                      for c0, c1 in chunks]
-
-    waited = stats.readback_ns
-    with span("format", None, None, call, tile) as fmt:
-        # the copies' enqueue
-        with span("readback", stats, "readback_ns", call, tile):
-            staged = [_to_host(p) for p in pieces]
-            if packed_out and use_tokens:
-                # one batch-wide destination: lanes [a, b) write from
-                # bound[a], a token expanding to at most two runs; the
-                # parts close up after
-                bound = np.zeros(B + 1, np.int64)
-                np.cumsum(2 * np.minimum(lane_tot, capT), out=bound[1:])
-                flat = np.empty(int(bound[-1]), np.uint16)
-                counts = np.empty(B, np.int64)
-
-                def decode(part, a, b):
-                    return len(native.tokens_to_runs(
-                        part, lane_tot[a:b], out=flat[bound[a]:],
-                        counts=counts[a:b])[0])
-            elif use_tokens:
-                def decode(part, a, b):
-                    return native.format_tokens(part, lane_tot[a:b])
-            else:
-                # the host copy of a chunk of (cap, B) int16 or uint8 runs
-                # is contiguous: the native walk reads it with the chunk's
-                # stride
-                fmt_runs = (native.extract_runs if packed_out else
-                            native.format_cigars_u8 if use_u8
-                            else native.format_cigars)
-
-                def decode(part, a, b):
-                    return fmt_runs(part if use_u8 else part.view(np.uint16),
-                                    lane_tot[a:b])
-        parts = []
-        for (c0, _), (host, done) in zip(chunks, staged):
-            with span("readback", stats, "readback_ns", call, tile):
-                if done is not None:
-                    done.synchronize()
-            parts += _decode_parts(decode, host, c0, use_tokens, pool)
-        stats.readback_bytes += sum(host.nbytes for host, _ in staged)
-        if not packed_out:
-            payload = [c for _, _, done in parts for c in done.result()]
-        else:
-            offs = np.zeros(B + 1, np.int64)
+    toks = None
+    with ExitStack() as held:
+        held.enter_context(lock)
+        with span("compact", stats, "compact_ns", call, tile):
+            B = len(eds)
+            cap = max(int(totals.max(initial=0)), 1)
+            ne = max(int(wmax.max(initial=0)), 1)
+            wcap = max(int(wused.max(initial=0)), 1)
+            ent, cnt = res.entries[:wcap], res.counts[:wcap]
+            chunks = _lane_chunks(B)
+            use_tokens = tokens.supports(cfg)
+            # one byte a run where tb_limit bounds every count below 64
+            # (api.py:550)
+            use_u8 = not use_tokens and cfg.tb_limit <= U8_MAX_TB_LIMIT
             if use_tokens:
-                pos = 0
-                for a, _, done in parts:
-                    n, src = done.result(), int(bound[a])
-                    if src != pos:
-                        flat[pos : pos + n] = flat[src : src + n]
-                    pos += n
-                np.cumsum(counts, out=offs[1:])
-                payload = (flat[:pos], offs)
+                toks, _, lane_tot = tokens.compact_tokenize(ent, cnt, cap,
+                                                            ne)
+                lane_tot = lane_tot.cpu().numpy()
+                capT = max(int(lane_tot.max(initial=0)), 1)
+                # (B, capT) lane-major
+                dev_out = tokens.compact_tokens(toks, capT)
+                pieces = [dev_out[c0:c1,
+                                  :int(lane_tot[c0:c1].max(initial=0))]
+                          for c0, c1 in chunks]
             else:
-                flats = [done.result() for _, _, done in parts]
-                np.cumsum(totals, out=offs[1:])
-                payload = (np.concatenate(flats) if flats
-                           else np.zeros(0, np.uint16), offs)
+                compactor = (compact.compact_entries_u8 if use_u8
+                             else compact.compact_entries)
+                dev_out, _ = compactor(ent[:, :ne], cnt, cap)
+                lane_tot = totals
+                pieces = [dev_out[:max(int(totals[c0:c1].max(initial=0)),
+                                       1), c0:c1]
+                          for c0, c1 in chunks]
+
+        waited = stats.readback_ns
+        with span("format", None, None, call, tile) as fmt:
+            # the copies' enqueue
+            with span("readback", stats, "readback_ns", call, tile):
+                staged = [_to_host(p) for p in pieces]
+                del ent, cnt, toks, dev_out, pieces
+                held.close()
+                if packed_out and use_tokens:
+                    # one batch-wide destination: lanes [a, b) write from
+                    # bound[a], a token expanding to at most two runs; the
+                    # parts close up after
+                    bound = np.zeros(B + 1, np.int64)
+                    np.cumsum(2 * np.minimum(lane_tot, capT), out=bound[1:])
+                    flat = np.empty(int(bound[-1]), np.uint16)
+                    counts = np.empty(B, np.int64)
+
+                    def decode(part, a, b):
+                        return len(native.tokens_to_runs(
+                            part, lane_tot[a:b], out=flat[bound[a]:],
+                            counts=counts[a:b])[0])
+                elif use_tokens:
+                    def decode(part, a, b):
+                        return native.format_tokens(part, lane_tot[a:b])
+                else:
+                    # the host copy of a chunk of (cap, B) int16 or uint8
+                    # runs is contiguous: the native walk reads it with the
+                    # chunk's stride
+                    fmt_runs = (native.extract_runs if packed_out else
+                                native.format_cigars_u8 if use_u8
+                                else native.format_cigars)
+
+                    def decode(part, a, b):
+                        return fmt_runs(part if use_u8
+                                        else part.view(np.uint16),
+                                        lane_tot[a:b])
+            parts = []
+            for (c0, _), (host, done) in zip(chunks, staged):
+                with span("readback", stats, "readback_ns", call, tile):
+                    if done is not None:
+                        done.synchronize()
+                parts += _decode_parts(decode, host, c0, use_tokens, pool)
+            stats.readback_bytes += sum(host.nbytes for host, _ in staged)
+            if not packed_out:
+                payload = [c for _, _, done in parts for c in done.result()]
+            else:
+                offs = np.zeros(B + 1, np.int64)
+                if use_tokens:
+                    pos = 0
+                    for a, _, done in parts:
+                        n, src = done.result(), int(bound[a])
+                        if src != pos:
+                            flat[pos : pos + n] = flat[src : src + n]
+                        pos += n
+                    np.cumsum(counts, out=offs[1:])
+                    payload = (flat[:pos], offs)
+                else:
+                    flats = [done.result() for _, _, done in parts]
+                    np.cumsum(totals, out=offs[1:])
+                    payload = (np.concatenate(flats) if flats
+                               else np.zeros(0, np.uint16), offs)
     if not packed_out:
         stats.format_ns += fmt.ns - (stats.readback_ns - waited)
     return eds, payload, failed
@@ -698,7 +719,7 @@ def _align_tiles(cfg: AlignConfig, mesh, n: int, order: List[int],
              if sharded else [None, None])
     decode_pool = (ThreadPoolExecutor(max_workers=DECODE_THREADS)
                    if DECODE_THREADS > 1 else None)
-    pending = None
+    pending = finishing = None
     try:
         for t, idxs in enumerate(tiles):
             tst = AlignStats()
@@ -715,10 +736,16 @@ def _align_tiles(cfg: AlignConfig, mesh, n: int, order: List[int],
                 with span("caller_wait", stats, "caller_wait_ns", call,
                           t - 1):
                     pending.result()
+                # the finished tile's device results go back to the
+                # allocator here, before tile n+1 takes its own, and not
+                # when the worker thread gets round to dropping its work
+                # item: the device's peak memory does not hang on that
+                finishing.clear()
             if worker is None:
                 finish_tile(flights, tst, slot, t)
             else:
                 pending = worker.submit(finish_tile, flights, tst, slot, t)
+                finishing = flights
         if pending is not None:
             with span("caller_wait", stats, "caller_wait_ns", call,
                       len(tiles) - 1):

@@ -1,12 +1,13 @@
-// GenASM windowed alignment for bitvectors of two to four 64-bit words
-// (W = 65..256), one thread per pair, for Hopper (sm_90a).
+// GenASM windowed alignment for bitvectors of two and three 64-bit words
+// (W = 65..192), one thread per pair, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel scrooge_tpu/ops/engine_pallas.py:901
 // (slab_step_kernel, body _multi_window_kernel :367-836, with its multiword
-// helpers _shl1_u32, _ones_shifted_u32 and _mw_* :241-334) at two to four
-// words, with the slab loop around it (_align_scan :919-1056) and the
-// per-pair genome segment copy. One launch runs every window of every
-// pair; genasm_windows1.cu does the same for one word (W <= 64).
+// helpers _shl1_u32, _ones_shifted_u32 and _mw_* :241-334) at two and
+// three words, with the slab loop around it (_align_scan :919-1056) and
+// the per-pair genome segment copy. One launch runs every window of every
+// pair; genasm_windows1.cu does the same for one word (W <= 64) and
+// genasm_windows_wide.cu, a warp a pair, for four words and more.
 //
 // What bounds it on this card: one thread per pair gives B threads (16384
 // at the bench tile, ~4 warps an SM), so each scheduler holds about one
@@ -33,8 +34,8 @@
 //     d+1 at i+1, shares the shifts between them, and reads and writes the
 //     forefront once per row pair;
 // (d) the forefront stays in device memory (lane-minor, L2-resident:
-//     ~36 MB at the bench tile), walked in batches of CHF = 8, 4, 2
-//     columns (NW = 2, 3, 4) aligned to CHF: a batch picks its text word
+//     ~36 MB at the bench tile), walked in batches of CHF = 8 and 4
+//     columns (NW = 2, 3) aligned to CHF: a batch picks its text word
 //     once, so its characters are compile-time shifts, and it loads the
 //     next batch's forefront words into registers before it stores its
 //     own, so no load waits behind a store and a batch's arithmetic covers
@@ -87,16 +88,15 @@ constexpr int LB = 32;  // lanes of an R or forefront block
 constexpr int ET_OFF = 1 << 8;  // the key's flag: no early termination
 
 // forefront columns per fill batch: the batch in hand and the prefetched
-// one take 2 CHF NW registers of 64 bits, so CHF shrinks as NW grows (at
-// NW = 4, 4 columns spill)
+// one take 2 CHF NW registers of 64 bits, so CHF shrinks as NW grows
 template <int NW>
 __host__ __device__ constexpr int fill_batch() {
-  return NW == 2 ? 8 : NW == 3 ? 4 : 2;
+  return NW == 2 ? 8 : 4;
 }
 
 // traceback offsets per batch of R loads: 4 at two words, where a
 // level's '=' runs are short against a batch of 8 (the window lab's tb8
-// variant times 8 on the W=128 bench tile), 8 at three and four words
+// variant times 8 on the W=128 bench tile), 8 at three words
 template <int NW>
 __host__ __device__ constexpr int tb_batch() {
   return NW == 2 ? 4 : 8;
@@ -502,10 +502,11 @@ int launch(const void* text_words, int64_t text_words_n,
 }  // namespace
 
 #ifdef __CUDACC__
-// key: the words per bitvector, ceil(W/64) in 2..4 (genasm_windows1.cu
-// takes one word), with ET_OFF set for the instantiation without early
-// termination; returns -1 for arguments the kernel does not take, else
-// the launch's cudaGetLastError()
+// key: the words per bitvector, ceil(W/64) in 2..3 (genasm_windows1.cu
+// takes one word, genasm_windows_wide.cu four and more), with ET_OFF set
+// for the instantiation without early termination; returns -1 for
+// arguments the kernel does not take, else the launch's
+// cudaGetLastError()
 extern "C" int genasm_windows_launch(
     int key, const void* text_words, int64_t text_words_n,
     const void* text_base, const void* text_len, const void* pattern_words,
@@ -513,14 +514,13 @@ extern "C" int genasm_windows_launch(
     int O, int max_windows, void* R, void* ff, void* ed, void* failed,
     void* entries, void* counts, void* stream) {
   const int nw = key & ~ET_OFF;
-  if (nw < 2 || nw > 4 || nw != (W + 63) / 64 || O < 0 || O >= W || K < 1 ||
+  if (nw < 2 || nw > 3 || nw != (W + 63) / 64 || O < 0 || O >= W || K < 1 ||
       text_words_n < 0 || pattern_stride < 0 || max_windows < 0)
     return -1;
   if (B <= 0) return 0;
   const bool et = !(key & ET_OFF);
   auto* const fn = nw == 2 ? (et ? &launch<2, true> : &launch<2, false>)
-                 : nw == 3 ? (et ? &launch<3, true> : &launch<3, false>)
-                           : (et ? &launch<4, true> : &launch<4, false>);
+                           : (et ? &launch<3, true> : &launch<3, false>);
   return fn(text_words, text_words_n, text_base, text_len, pattern_words,
             pattern_stride, pattern_len, B, W, K, O, max_windows, R, ff, ed,
             failed, entries, counts, (cudaStream_t)stream);

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel scrooge_tpu/ops/engine_pallas.py:901
 // (slab_step_kernel, body _multi_window_kernel :367-836) at one word, with
-// the slab loop around it, as genasm_windows.cu does for W <= 256. It
+// the slab loop around it, as genasm_windows.cu does for W <= 192. It
 // computes what genasm_windows_kernel<1> computes, output for output; the
 // difference is where the per-thread time goes.
 //

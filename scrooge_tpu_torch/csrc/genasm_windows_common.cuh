@@ -1,5 +1,5 @@
 // Helpers of the one-thread-a-pair window kernels, genasm_windows1.cu (one
-// word) and genasm_windows.cu (two to four words): bit masks and the
+// word) and genasm_windows.cu (two and three words): bit masks and the
 // window set-up from packed 2-bit characters (16 a 32-bit word, char k of
 // a word in bits [2k, 2k+2)).
 //

@@ -1,15 +1,19 @@
-// GenASM windowed alignment for bitvectors of five to 32 64-bit words
-// (W = 257..2048), one warp per pair, for Hopper (sm_90a).
+// GenASM windowed alignment for bitvectors of four to 32 64-bit words
+// (W = 193..2048), one warp per pair, for Hopper (sm_90a).
 //
 // Counterpart of the JAX package's XLA engine at the widths its Pallas
 // kernel cannot hold: scrooge_tpu/ops/engine_xla.py:105 (_window_step,
 // one window of a lane batch: pattern masks, DP fill, traceback) and
 // :395-443 (_align_scan / align_batch / align_batch_mapped, the loop over
 // windows), which scrooge_tpu/api.py:_resolve_backend picks for every
-// W > 256. No pallas_call is replaced. One launch runs every window of
-// every pair; genasm_windows1.cu and genasm_windows.cu do the same for
-// one and for two to four words, with one thread per pair and every
-// bitvector in registers, which cannot grow to 32 words.
+// W > 256, and at four words (W = 193..256) the Pallas kernel
+// scrooge_tpu/ops/engine_pallas.py:901 (slab_step_kernel), which the JAX
+// package runs up to W = 256. One launch runs every window of every
+// pair; genasm_windows1.cu and genasm_windows.cu do the same for one and
+// for two or three words, with one thread per pair and every bitvector
+// in registers, which cannot grow to 32 words. (At four words that
+// design made a tile of 1,024 pairs 32 warps: most SMs idle, and every
+// dependent step's latency exposed.)
 //
 // What bounds it on this card: each DP cell depends on the cell to its
 // right, so a row is a chain of W+1 dependent steps, and a pair's windows
@@ -17,10 +21,11 @@
 // latency of that chain, so the design keeps every load and every
 // shuffle off it and puts the whole card on the rows:
 //
-// (a) a warp per pair, as RP = 32/G sub-groups of G threads (G = 8, 16,
-//     32, the power of two >= NW; RP at most MAX_ROWS). Thread t of a
-//     sub-group holds word t of every bitvector, MSB-aligned as in
-//     genasm_windows.cu: pattern position j sits at bit W-1-j, a window's
+// (a) a warp per pair, as RP = 32/G sub-groups of G threads (G = 4, 8,
+//     16, 32, the power of two >= NW: eight rows a pass at NW = 4, four
+//     at NW = 5..8; RP at most MAX_ROWS). Thread t of a sub-group holds
+//     word t of every bitvector, MSB-aligned as in genasm_windows.cu:
+//     pattern position j sits at bit W-1-j, a window's
 //     values live in bits [s, W) with s = W - m, start columns are ones in
 //     [s+d, W), and the full-match probe is bit W-1, in word NW-1. Threads
 //     t >= NW compute words nothing reads and store nothing. At 1,024
@@ -96,8 +101,8 @@ constexpr int OP_EQ = 0, OP_X = 1, OP_I = 2, OP_D = 3, OP_NONE = 4;
 constexpr int FAIL_TB = 1, FAIL_STALL = 2, FAIL_INCOMPLETE = 8;
 constexpr int THREADS = 32;  // a block: one warp, one pair
 constexpr int WARP = 32;
-constexpr int MIN_NW = 5, MAX_NW = 32;
-constexpr int MAX_ROWS = 4;  // rows a pass at most
+constexpr int MIN_NW = 4, MAX_NW = 32;
+constexpr int MAX_ROWS = 8;  // rows a pass at most
 constexpr int UNROLL = 16;   // steps a block: the forefront ring's depth
 constexpr int LAG = 2;       // columns a row runs behind the row above
 constexpr int TB_CH = 8;     // traceback offsets a batch of R loads
@@ -609,7 +614,7 @@ int launch(const Params& P, cudaStream_t stream) {
 
 }  // namespace
 
-// key: the words per bitvector, ceil(W/64) in 5..32 (genasm_windows1.cu
+// key: the words per bitvector, ceil(W/64) in 4..32 (genasm_windows1.cu
 // and genasm_windows.cu take fewer), with ET_OFF set for the
 // instantiation without early termination; R scratch (K+1) * NWS *
 // (W-O+NWS) words a pair, NWS = NW - max(O-1,0)/64, forefront scratch
@@ -635,7 +640,8 @@ extern "C" int genasm_windows_wide_launch(
                  (int32_t*)ed,                (int32_t*)failed,
                  (int16_t*)entries,           (int32_t*)counts};
   const bool et = !(key & ET_OFF);
-  auto* const fn = nw <= 8 ? (et ? &launch<8, true> : &launch<8, false>)
+  auto* const fn = nw <= 4 ? (et ? &launch<4, true> : &launch<4, false>)
+                 : nw <= 8 ? (et ? &launch<8, true> : &launch<8, false>)
                  : nw <= 16 ? (et ? &launch<16, true> : &launch<16, false>)
                             : (et ? &launch<32, true> : &launch<32, false>);
   return fn(P, (cudaStream_t)stream);

@@ -98,9 +98,10 @@ class CudaKernel:
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # replaces engine_pallas.slab_step_kernel (_multi_window_kernel) for two
-# to four words; keyed by engine.kernel_key: the words per bitvector,
-# NW = ceil(W/64) in 2..4 (the entry point refuses 1: GENASM_WINDOWS1
-# takes one word), with engine.ET_OFF set without early termination
+# and three words; keyed by engine.kernel_key: the words per bitvector,
+# NW = ceil(W/64) in 2..3 (the entry point refuses 1, GENASM_WINDOWS1's,
+# and 4 and more, GENASM_WINDOWS_WIDE's), with engine.ET_OFF set without
+# early termination
 GENASM_WINDOWS = CudaKernel(
     "genasm_windows.cu", "genasm_windows_launch",
     [_P, _I64,            # text words, their count
@@ -124,9 +125,10 @@ GENASM_WINDOWS1 = CudaKernel(
      _P])                 # cudaStream_t
 
 # the counterpart of engine_xla._window_step / _align_scan, which the JAX
-# package runs for W > 256: five to 32 words, a group of G threads a
-# pair; keyed by engine.kernel_key, NW = ceil(W/64) in 5..32 (the entry
-# point refuses fewer)
+# package runs for W > 256, and of slab_step_kernel at four words: four
+# to 32 words, a warp a pair in groups of G threads; keyed by
+# engine.kernel_key, NW = ceil(W/64) in 4..32 (the entry point refuses
+# fewer)
 GENASM_WINDOWS_WIDE = CudaKernel(
     "genasm_windows_wide.cu", "genasm_windows_wide_launch",
     [_P, _I64,            # text words, their count

@@ -9,15 +9,16 @@ Port of the JAX package's window engines:
   this is one hand-written kernel launch for all windows, one thread per
   pair, which replaces the slab loop and the per-pair segment copy:
   ``csrc/genasm_windows1.cu`` for one-word bitvectors (W <= 64) and
-  ``csrc/genasm_windows.cu`` for two to four words; both set windows up
-  from the packed words, fill two rows a pass and run the TPU kernel's
-  level traceback. The choice follows the config alone.
+  ``csrc/genasm_windows.cu`` for two and three words (W <= 192); both set
+  windows up from the packed words, fill two rows a pass and run the TPU
+  kernel's level traceback. The choice follows the config alone.
 - ``engine_xla._window_step`` / ``_align_scan`` / ``align_batch[_mapped]``
   (scrooge_tpu/ops/engine_xla.py:105-443), which the JAX package runs for
   every W its Pallas kernel cannot hold (W > 256). On the card that is
-  ``csrc/genasm_windows_wide.cu``: five to 32 words (W = 257..2048), a
-  warp a pair, in groups of G threads that each fill a row of a pass,
-  thread t holding word t of every bitvector.
+  ``csrc/genasm_windows_wide.cu``, which also takes the Pallas kernel's
+  four words: four to 32 words (W = 193..2048), a warp a pair, in groups
+  of G threads that each fill a row of a pass, thread t holding word t of
+  every bitvector.
   ``align_windows_plain`` below is their lane-batched lockstep counterpart
   in torch ops. The CPU path and the tests use it, and on the card it is
   what every kernel is held against.
@@ -56,6 +57,7 @@ left shifts wrap as two's complement.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -80,8 +82,8 @@ FAIL_INCOMPLETE = 8  # the read was not consumed within max_windows
 MAX_W = 2048
 WORD = 64
 # words per bitvector of the kernels: genasm_windows1.cu one,
-# genasm_windows.cu up to four, genasm_windows_wide.cu the rest
-MULTIWORD_MAX_NW = 4
+# genasm_windows.cu up to three, genasm_windows_wide.cu the rest
+MULTIWORD_MAX_NW = 3
 # share of the card's free memory a call's R and forefront scratch may take
 SCRATCH_SHARE = 0.75
 # forefront slots below column 0 in genasm_windows_wide.cu (its FF_PAD)
@@ -201,8 +203,8 @@ def _check_inputs(text_words, text_base, text_len, pattern_words,
 
 def window_kernel(cfg: AlignConfig):
     """The CUDA kernel the config launches: genasm_windows1.cu for one
-    word (W <= 64), genasm_windows.cu for two to four, and
-    genasm_windows_wide.cu for five to 32 (W = 257..2048)."""
+    word (W <= 64), genasm_windows.cu for two and three (W <= 192), and
+    genasm_windows_wide.cu for four to 32 (W = 193..2048)."""
     nw = num_words(cfg.W)
     if nw == 1:
         return _cuda.GENASM_WINDOWS1
@@ -220,15 +222,16 @@ def kernel_key(cfg: AlignConfig) -> int:
 
 def group_size(W: int) -> int:
     """Threads a row of genasm_windows_wide.cu, one a word: the power of
-    two >= NW, at least 8 (8, 16 or 32). A warp holds 32 / G of these
-    groups, the rows of a pass of its one pair."""
-    return max(8, 1 << (num_words(W) - 1).bit_length())
+    two >= NW (4, 8, 16 or 32 for its NW = 4..32). A warp holds 32 / G of
+    these groups, the rows of a pass of its one pair: eight at NW = 4,
+    four at NW = 5..8."""
+    return 1 << (num_words(W) - 1).bit_length()
 
 
 def pairs_per_warp(cfg: AlignConfig) -> int:
-    """Pairs a warp of the config's kernel runs: 32 at one thread a pair,
-    one for the wide kernel (a warp a pair). A launch's lanes come in
-    these units."""
+    """Pairs a warp of the config's kernel runs: 32 at one thread a pair
+    (W <= 192), one for the wide kernel (a warp a pair, W >= 193). A
+    launch's lanes come in these units."""
     return 32 if num_words(cfg.W) <= MULTIWORD_MAX_NW else 1
 
 
@@ -239,12 +242,13 @@ def scratch_words(cfg: AlignConfig, B: int):
     column and keeps its forefront in registers (no scratch). The
     multiword kernels store only the MSB-aligned words that hold bits
     [O-1, W), which the traceback reads: NW - max(O-1, 0) // 64 of them.
-    genasm_windows.cu keeps rows d <= K+1 (the row pair at d = K computes
-    row K+1) in blocks of 32 lanes, and a forefront of W+17 columns of NW
-    words (ff_cols: 0..W and the top fill batch's columns above W).
-    genasm_windows_wide.cu stores rows d <= K (a pass never stores past
-    K), each laid out along its skewed word group: column i's word q at
-    slot i + NW-1-q, so W-O+NWS slots a row (NWS the stored words); and a
+    genasm_windows.cu (two and three words) keeps rows d <= K+1 (the row
+    pair at d = K computes row K+1) in blocks of 32 lanes, and a forefront
+    of W+17 columns of NW words (ff_cols: 0..W and the top fill batch's
+    columns above W). genasm_windows_wide.cu (four words and more) stores
+    rows d <= K (a pass never stores past K), each laid out along its
+    skewed word group: column i's word q at slot i + NW-1-q, so W-O+NWS
+    slots a row (NWS the stored words); and a
     forefront of the W+1 columns laid out the same way, W+NW slots of NW
     words, WIDE_FF_PAD slots below them that the ring's last loads read,
     and one slot more for the row above row 0, each pair's own.
@@ -278,6 +282,20 @@ def launch_chunks(cfg: AlignConfig, B: int, budget_bytes: int):
     return [(lo, min(lo + step, B)) for lo in range(0, B, step)]
 
 
+_TRANSIENT_LOCKS: dict = {}
+
+
+def transient_lock(dev) -> threading.Lock:
+    """The device's lock for buffers that live only through a short stretch
+    of host code: a launch's scratch (held here from its allocation until
+    it goes back to the allocator) and a tile's meta and compaction
+    buffers (api._build_alignments, until its readback is queued). The
+    tile pipeline's two threads never hold both at once, so the device's
+    peak memory, which one launch's scratch sets, does not depend on how
+    their timing falls."""
+    return _TRANSIENT_LOCKS.setdefault(torch.device(dev), threading.Lock())
+
+
 def free_bytes(dev) -> int:
     """Bytes of the card's memory torch could hand out now: the free
     memory cudaMemGetInfo reports and what torch's caching allocator
@@ -291,10 +309,11 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
                         pattern_words, pattern_len,
                         budget_bytes: Optional[int] = None) -> BatchResult:
     """Kernel wrapper: allocates outputs, then launches once for each lane
-    range of launch_chunks, with that range's scratch; ``budget_bytes``
-    (default SCRATCH_SHARE of free_bytes) bounds one launch's scratch. A range after
-    the first writes its runs to its own buffers, which are copied into
-    place; the split changes no output."""
+    range of launch_chunks, with that range's scratch, made and given back
+    under the device's transient_lock; ``budget_bytes`` (default
+    SCRATCH_SHARE of free_bytes) bounds one launch's scratch. A range
+    after the first writes its runs to its own buffers, which are copied
+    into place; the split changes no output."""
     _check_inputs(text_words, text_base, text_len, pattern_words,
                   pattern_len)
     kernel = window_kernel(cfg)
@@ -315,9 +334,9 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
             (max_windows, NE, hi - lo), dtype=torch.int16, device=dev)
         cnt = counts if whole else torch.empty(
             (max_windows, hi - lo), dtype=torch.int32, device=dev)
-        scratch = [torch.empty(n, dtype=torch.int64, device=dev)
-                   for n in scratch_words(cfg, hi - lo) if n]
-        with torch.cuda.device(dev):
+        with transient_lock(dev), torch.cuda.device(dev):
+            scratch = [torch.empty(n, dtype=torch.int64, device=dev)
+                       for n in scratch_words(cfg, hi - lo) if n]
             kernel.launch(kernel_key(cfg), text_words.data_ptr(),
                           text_words.numel(), text_base[lo:].data_ptr(),
                           text_len[lo:].data_ptr(),
@@ -329,9 +348,10 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
                           ed[lo:].data_ptr(), failed[lo:].data_ptr(),
                           ent.data_ptr(), cnt.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
-        # back to torch's allocator before the next range takes its own:
-        # it reuses the memory only for work queued after this launch
-        del scratch
+            # back to torch's allocator before the next range takes its
+            # own: it reuses the memory only for work queued after this
+            # launch
+            del scratch
         if not whole:
             entries[:, :, lo:hi] = ent
             counts[:, lo:hi] = cnt

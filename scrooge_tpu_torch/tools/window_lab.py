@@ -14,7 +14,7 @@ at the source's configuration:
   ch16     CH = 16
   t32      32 threads a block (full has 64)
 
-``csrc/genasm_windows.cu`` (two to four words, W=128 K=128 O=65, the
+``csrc/genasm_windows.cu`` (two and three words, W=128 K=128 O=65, the
 wide path):
 
   full     the source as it is
@@ -24,10 +24,11 @@ wide path):
   tb8      CH = 8 traceback offsets a batch of R loads at two words (full
            has 4)
 
-``csrc/genasm_windows_wide.cu`` (five to 32 words, W=512 K=512 O=257
+``csrc/genasm_windows_wide.cu`` (four to 32 words, W=512 K=512 O=257
 on 1,024 reads, the W=512 path's tile):
 
   full     the source as it is: a warp a pair, 4 rows a pass at G = 8
+           (8 at NW = 4, where G = 4)
   clocks   full with SM clock reads: set-up / fill / traceback cycles and
            the fill's column steps, per thread (so that it applies to
            another version of the file too, ``--kernel_file``)
@@ -37,6 +38,9 @@ on 1,024 reads, the W=512 path's tile):
   rows2    two rows a pass
   t64      64 threads a block (full has 32)
   nocs     R stored without the streaming hint
+  g8       NW = 4 (W = 193..256) on groups of G = 8, four rows a pass,
+           half of each group idle (full has G = 4, eight rows a pass):
+           time it on a four-word tile, ``--wko 256 256 129``
 
 ``csrc/genasm_fill_lab.cu`` (the fill lab, kernel_lab.py's kernel, at
 2048 and 16384 lanes, its full / nostore / noff each):
@@ -56,11 +60,13 @@ in the fill lab.
     python -m scrooge_tpu_torch.tools.window_lab [variant ...] \\
         [--source genasm_windows1.cu|genasm_windows.cu|
                   genasm_windows_wide.cu|genasm_fill_lab.cu] \\
-        [--reads N] [--kernel_file PATH]
+        [--reads N] [--kernel_file PATH] [--wko W K O]
 
 ``--reads`` defaults to 16384 (1024 for the wide source). ``--kernel_file``
 builds the variants from another version of the source (the parent's,
 unpacked with ``git archive``), with the same entry point and scratch.
+``--wko`` runs the tile at another W, K, O than the source's own (one
+the source's entry point takes).
 
 needs a CUDA card: there is no plain version of a timing variant.
 """
@@ -189,14 +195,16 @@ SOURCES = {
         "u8": (("constexpr int UNROLL = 16;", "constexpr int UNROLL = 8;"),),
         "u32": (("constexpr int UNROLL = 16;",
                  "constexpr int UNROLL = 32;"),),
-        "rows1": (("constexpr int MAX_ROWS = 4;",
+        "rows1": (("constexpr int MAX_ROWS = 8;",
                    "constexpr int MAX_ROWS = 1;"),),
-        "rows2": (("constexpr int MAX_ROWS = 4;",
+        "rows2": (("constexpr int MAX_ROWS = 8;",
                    "constexpr int MAX_ROWS = 2;"),),
         "t64": (("constexpr int THREADS = 32;",
                  "constexpr int THREADS = 64;"),),
         "nocs": (("  __stcs((unsigned long long*)p, (unsigned long long)v);",
                   "  *p = v;"),),
+        "g8": (("nw <= 4 ? (et ? &launch<4, true> : &launch<4, false>)",
+                "nw <= 4 ? (et ? &launch<8, true> : &launch<8, false>)"),),
     }),
     "genasm_fill_lab.cu": (_cuda.GENASM_FILL_LAB, None, {
         "full": (),
@@ -428,6 +436,8 @@ def main(argv=None) -> int:
     ap.add_argument("--source", default=DEFAULT_SOURCE, choices=SOURCES)
     ap.add_argument("--reads", type=int, default=None)
     ap.add_argument("--kernel_file", default=None)
+    ap.add_argument("--wko", type=int, nargs=3, default=None,
+                    metavar=("W", "K", "O"))
     args = ap.parse_args(argv)
     variants = args.variants or list(SOURCES[args.source][2])
     for v in variants:
@@ -445,7 +455,7 @@ def main(argv=None) -> int:
         from ..profiling import kernel_time
         from ..utils.simulate import simulate_dataset
 
-        W, K, O = SOURCES[args.source][1]
+        W, K, O = args.wko or SOURCES[args.source][1]
         cfg = AlignConfig(W=W, K=K, O=O, batch_tile=reads)
         ds = simulate_dataset(genome_len=1_000_000, num_reads=reads,
                               read_len=10000, accuracy=0.95, seed=7)
@@ -454,7 +464,7 @@ def main(argv=None) -> int:
         rows = measure(variants, staged, source=args.source,
                        path=args.kernel_file)
         oracle = "the engine"
-        where += f", {staged[3]} reads"
+        where += f", {staged[3]} reads at W={W} K={K} O={O}"
         if args.kernel_file:
             where += f", {args.kernel_file}"
     full = {r["case"]: r["median_ms"] for r in rows

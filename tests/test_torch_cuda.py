@@ -51,7 +51,8 @@ def _same(a, b):
                                  (64, 64, 2), (96, 96, 49), (128, 128, 65),
                                  (192, 192, 97), (256, 256, 129),
                                  (257, 257, 129), (320, 320, 161),
-                                 (512, 512, 0), (1024, 1024, 513)])
+                                 (512, 512, 0), (1024, 1024, 513),
+                                 (193, 193, 97), (256, 256, 0)])
 def test_kernel_matches_plain(cuda, wko):
     W, K, O = wko
     cfg = st.AlignConfig(W=W, K=K, O=O)
@@ -76,7 +77,8 @@ def test_kernel_matches_plain(cuda, wko):
 
 @pytest.mark.parametrize("wko", [(64, 64, 33), (64, 16, 33),
                                  (128, 128, 65), (256, 64, 129),
-                                 (512, 10, 257), (1024, 8, 0)])
+                                 (512, 10, 257), (1024, 8, 0),
+                                 (256, 12, 129)])
 def test_kernel_without_early_termination_matches_plain(cuda, wko):
     """The instantiations without early termination (engine.ET_OFF in
     the key) on edge pairs: FAIL_TB lanes at the small K, and every row
@@ -172,11 +174,13 @@ MULTIWORD_EDGE_CONFIGS = [(128, 128, 65), (96, 96, 49), (128, 128, 2),
 
 @pytest.mark.parametrize("wko", MULTIWORD_EDGE_CONFIGS)
 def test_multiword_kernel_matches_plain_on_edge_pairs(cuda, wko):
-    """The multiword kernel (genasm_windows.cu) against the plain version,
-    on the edge-case batches of the CPU test in test_torch_engine.py."""
+    """The multiword kernels (genasm_windows.cu at two and three words,
+    genasm_windows_wide.cu at four) against the plain version, on the
+    edge-case batches of the CPU test in test_torch_engine.py."""
     W, K, O = wko
     cfg = st.AlignConfig(W=W, K=K, O=O)
-    kern = _cuda.GENASM_WINDOWS
+    kern = (_cuda.GENASM_WINDOWS if W <= 192 else
+            _cuda.GENASM_WINDOWS_WIDE)
     assert engine.window_kernel(cfg) is kern
     text, tlen, pattern, plen = multiword_edge_batch(cfg)
     B, P = pattern.shape
@@ -198,10 +202,11 @@ def test_multiword_kernel_matches_plain_on_edge_pairs(cuda, wko):
     _same(got, want)
 
 
-@pytest.mark.parametrize("nw, W", [(1, 64), (5, 320), (4, 320), (2, 64)])
+@pytest.mark.parametrize("nw, W", [(1, 64), (5, 320), (4, 320), (2, 64),
+                                   (4, 256), (4, 193)])
 def test_multiword_kernel_refuses_one_word_and_wide_windows(cuda, nw, W):
-    """genasm_windows_launch takes NW = ceil(W/64) in 2..4 only: one word
-    belongs to genasm_windows1.cu and W > 256 to genasm_windows_wide.cu. A refused
+    """genasm_windows_launch takes NW = ceil(W/64) in 2..3 only: one word
+    belongs to genasm_windows1.cu and W > 192 to genasm_windows_wide.cu. A refused
     launch raises and counts nothing; the entry point returns -1 before
     it reads any pointer."""
     kern = _cuda.GENASM_WINDOWS
@@ -214,12 +219,14 @@ def test_multiword_kernel_refuses_one_word_and_wide_windows(cuda, nw, W):
     assert dict(kern.counts) == before
 
 
-@pytest.mark.parametrize("wko", [(512, 512, 257), (2048, 2048, 1025)])
+@pytest.mark.parametrize("wko", [(512, 512, 257), (2048, 2048, 1025),
+                                 (256, 256, 129)])
 def test_wide_kernel_split_launches_match_one(cuda, wko):
     """A tile split into five launches by a small scratch budget (12
     pairs a launch, the last 2) gives the one launch's outputs; W=2048
     (G = 32) takes 273 MB of R a pair, so a tile of a few hundred pairs
-    splits by itself."""
+    splits by itself. At W=256 (G = 4) a launch's lanes come a pair at a
+    time too (pairs_per_warp 1), not in warps of 32 pairs."""
     W, K, O = wko
     cfg = st.AlignConfig(W=W, K=K, O=O)
     text, tlen, pattern, plen = _batch(9, 50, 900, 800)
@@ -234,6 +241,8 @@ def test_wide_kernel_split_launches_match_one(cuda, wko):
     budget = 8 * sum(engine.scratch_words(cfg, 12))
     assert len(engine.launch_chunks(cfg, 50, budget)) == 5
     kern, nw = _cuda.GENASM_WINDOWS_WIDE, engine.num_words(W)
+    assert engine.window_kernel(cfg) is kern
+    assert engine.pairs_per_warp(cfg) == 1
     before = kern.counts[nw]
     split = engine._align_windows_cuda(cfg, maxw, *args, budget_bytes=budget)
     assert kern.counts[nw] == before + 5
@@ -243,10 +252,10 @@ def test_wide_kernel_split_launches_match_one(cuda, wko):
         engine._align_windows_cuda(cfg, maxw, *args, budget_bytes=1024)
 
 
-@pytest.mark.parametrize("nw, W", [(4, 256), (1, 64), (33, 2100),
-                                   (6, 320)])
+@pytest.mark.parametrize("nw, W", [(3, 192), (1, 64), (33, 2100),
+                                   (6, 320), (4, 320), (5, 256)])
 def test_wide_kernel_refuses_other_word_counts(cuda, nw, W):
-    """genasm_windows_wide_launch takes NW = ceil(W/64) in 5..32 only and
+    """genasm_windows_wide_launch takes NW = ceil(W/64) in 4..32 only and
     returns -1 before it reads any pointer; nothing is counted."""
     kern = _cuda.GENASM_WINDOWS_WIDE
     before = dict(kern.counts)
@@ -255,6 +264,28 @@ def test_wide_kernel_refuses_other_word_counts(cuda, nw, W):
                     W // 2 + 1, 4, None, None, None, None, None, None,
                     None)
     assert dict(kern.counts) == before
+
+
+@pytest.mark.parametrize("et", [True, False], ids=["eton", "etoff"])
+def test_w256_tiles_launch_the_wide_kernel(cuda, et):
+    """align_reads at W=256 K=256 O=129 in three tiles: one launch of
+    genasm_windows_wide.cu a tile at key 4 (4 | ET_OFF without early
+    termination), none of genasm_windows.cu; the alignments equal the
+    CPU's."""
+    from scrooge_tpu_torch import bench
+    from scrooge_tpu_torch.utils.simulate import simulate_dataset
+
+    ds = simulate_dataset(genome_len=100_000, num_reads=300, read_len=2000,
+                          accuracy=0.95, seed=6)
+    cfg = st.AlignConfig(W=256, K=256, O=129, batch_tile=128,
+                         early_termination=et)
+    key = engine.kernel_key(cfg)
+    assert key == (4 if et else 4 | engine.ET_OFF)
+    before = bench.launches()
+    got = st.align_reads(ds.genome, ds.reads, cfg, device=cuda)
+    assert bench.since(before) == {_cuda.GENASM_WINDOWS_WIDE.source: {key: 3}}
+    assert got[:24] == st.align_reads(ds.genome, ds.reads[:24], cfg,
+                                      device="cpu")
 
 
 def test_one_word_kernel_refuses_wide_windows(cuda):

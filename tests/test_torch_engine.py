@@ -175,16 +175,16 @@ def test_plain_engine_matches_xla_engine_on_multiword_edge_pairs(wko):
     _assert_same(rx, rt)
 
 
-@pytest.mark.parametrize("W", [16, 64, 65, 256, 257, 2048])
+@pytest.mark.parametrize("W", [16, 64, 65, 192, 193, 256, 257, 2048])
 def test_window_kernel_follows_word_count(W):
     """The config alone picks the CUDA kernel: genasm_windows1.cu for one
-    word, genasm_windows.cu for two to four, genasm_windows_wide.cu for
-    more; CPU tensors take the plain version and launch none."""
+    word, genasm_windows.cu for two and three, genasm_windows_wide.cu for
+    four and more; CPU tensors take the plain version and launch none."""
     from scrooge_tpu_torch.ops import _cuda
 
     cfg = AlignConfig(W=W, K=W, O=W // 2 + 1)
     want = (_cuda.GENASM_WINDOWS1 if W <= 64 else _cuda.GENASM_WINDOWS
-            if W <= 256 else _cuda.GENASM_WINDOWS_WIDE)
+            if W <= 192 else _cuda.GENASM_WINDOWS_WIDE)
     assert engine.window_kernel(cfg) is want
     before = [dict(k.counts) for k in (_cuda.GENASM_WINDOWS1,
                                         _cuda.GENASM_WINDOWS,

@@ -223,3 +223,90 @@ def test_failed_lanes_in_a_middle_tile_are_retried(monkeypatch, cases, dev,
     for i in (0, len(c["texts"]) // 2, len(c["texts"]) - 1):
         assert c["want_pairs"][i] == pyref.align_pair(
             c["texts"][i], c["queries"][i].upper(), cfg)
+
+
+class _KeepingExecutor(api.ThreadPoolExecutor):
+    """A pool that holds on to every task's arguments after the task, as
+    a worker thread does until it gets round to dropping its work item."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kept = []
+
+    def submit(self, fn, *args, **kwargs):
+        self.kept.append(args)
+        return super().submit(fn, *args, **kwargs)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_finished_tile_results_go_before_the_next_launch(monkeypatch, cases,
+                                                         packed):
+    """However late the worker drops a finished tile, no launch finds the
+    device results of more than one earlier tile alive: the caller lets
+    go of a tile's results once the worker has finished it, so a card's
+    peak memory does not hang on the worker thread's timing."""
+    import weakref
+
+    monkeypatch.setattr(api, "ThreadPoolExecutor", _KeepingExecutor)
+    c = cases["64-64-33"]
+    real = engine.align_batch
+    earlier, alive = [], []
+
+    def counting(*args, **kwargs):
+        alive.append(sum(r() is not None for r in earlier))
+        res = real(*args, **kwargs)
+        earlier.append(weakref.ref(res.entries))
+        return res
+
+    monkeypatch.setattr(engine, "align_batch", counting)
+    out = st.align_pairs(c["texts"], c["queries"],
+                         st.AlignConfig(batch_tile=TILE),
+                         return_packed=packed, device="cpu")
+    assert key(out.to_alignments() if packed else out) == c["want_pairs"]
+    assert alive == [0, 1, 1, 1]
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_meta_and_compaction_hold_the_transient_lock(monkeypatch, cases,
+                                                     name):
+    """A tile's meta and compaction buffers are made under the device's
+    transient_lock (tokens at 64/64/33, uint8 runs at 128/128/65), which
+    a launch's scratch takes on a card, and the lock is free after the
+    call."""
+    c = cases[name]
+    lock = engine.transient_lock("cpu")
+    held = []
+
+    def checked(mod, fn_name):
+        real = getattr(mod, fn_name)
+
+        def fn(*args, **kwargs):
+            held.append((fn_name, lock.locked()))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(mod, fn_name, fn)
+
+    from scrooge_tpu_torch.ops import compact, tokens
+
+    for mod, fn_name in ((compact, "batch_meta"),
+                         (compact, "compact_entries"),
+                         (compact, "compact_entries_u8"),
+                         (tokens, "compact_tokenize"),
+                         (tokens, "compact_tokens")):
+        checked(mod, fn_name)
+    W, K, O = c["wko"]
+    out = st.align_pairs(c["texts"], c["queries"],
+                         st.AlignConfig(W=W, K=K, O=O, batch_tile=TILE),
+                         device="cpu")
+    assert key(out) == c["want_pairs"]
+    names = {n for n, _ in held}
+    assert "batch_meta" in names and len(names) >= 2
+    assert all(locked for _, locked in held)
+    assert not lock.locked()
+
+
+def test_transient_lock_is_one_a_device():
+    assert engine.transient_lock("cpu") is engine.transient_lock(
+        torch.device("cpu"))
+    assert engine.transient_lock("cuda:0") is not engine.transient_lock(
+        "cuda:1")

@@ -144,15 +144,17 @@ def test_w2048_is_taken_and_w2049_refused():
 
 
 @pytest.mark.parametrize("wko, per_warp", [((64, 64, 33), 32),
-                                           ((256, 256, 129), 32),
+                                           ((256, 256, 129), 8),
                                            ((320, 320, 161), 4),
                                            ((1024, 1024, 513), 2),
-                                           ((2048, 2048, 1025), 1)])
+                                           ((2048, 2048, 1025), 1),
+                                           ((192, 192, 97), 32)])
 def test_launch_chunks(wko, per_warp):
     """Ranges cover the tile in order; each range's scratch fits the
     budget, and all but the last are whole warps of pairs. A warp holds
-    ``per_warp`` pairs at one thread a pair (W <= 256), or that many rows
-    of a pass of its one pair in the wide kernel, 32/G of them."""
+    ``per_warp`` pairs at one thread a pair (W <= 192), or that many rows
+    of a pass of its one pair in the wide kernel (W >= 193), 32/G of
+    them."""
     cfg = AlignConfig(W=wko[0], K=wko[1], O=wko[2])
     wide = engine.num_words(cfg.W) > engine.MULTIWORD_MAX_NW
     if wide:
@@ -187,5 +189,19 @@ def test_wide_scratch_sizes():
     r, ff = engine.scratch_words(cfg, 3)
     assert r == rows * stored * (cols + stored - 1) * 3
     assert ff == (engine.WIDE_FF_PAD + cols * 2 + 1 + nw - 1 + 1) * nw * 3
+    assert engine.group_size(193) == 4 and engine.group_size(256) == 4
     assert engine.group_size(257) == 8 and engine.group_size(512) == 8
     assert engine.group_size(513) == 16 and engine.group_size(2048) == 32
+
+
+def test_four_word_scratch_sizes():
+    """W=256 K=256 O=129, now on the wide kernel: words 2..3 (bits [128,
+    256)) of rows 0..256 for 128 columns, 128 + 1 slots a row, and the
+    forefront of 257 columns of 4 words, 257 + 3 slots, with the padding
+    and the slot above: 67,638 words a pair, 554.1 MB a tile of 1,024."""
+    cfg = AlignConfig(W=256, K=256, O=129)
+    r, ff = engine.scratch_words(cfg, 1)
+    assert (r, ff) == (257 * 2 * 129, (engine.WIDE_FF_PAD + 256 + 4 + 1) * 4)
+    assert r + ff == 67_638
+    assert engine.pairs_per_warp(cfg) == 1
+    assert 8 * sum(engine.scratch_words(cfg, 1024)) == 554_090_496

@@ -5,9 +5,11 @@
 warp (32/G sub-groups of G, the rows of a pass of its one pair) run in
 lockstep over an array. It is built with g++ under AddressSanitizer and
 UBSan into ``scrooge_tpu_torch/_build/`` and run on ragged batches at W =
-320 and 512 (G = 8, four rows a pass), 640 (G = 16, two) and 1100 and
-2048 (G = 32, one); ed, failed, every count and the runs must equal the
-plain engine's (``engine.align_windows_plain``). The batch has an empty
+193 and 256 (G = 4, eight rows a pass), 320 and 512 (G = 8, four), 640
+(G = 16, two) and 1100 and 2048 (G = 32, one), and at W = 256 on
+``utils.simulate.edge_pairs`` too; ed, failed, every count and the runs
+must equal the plain engine's (``engine.align_windows_plain``). The batch
+has an empty
 read, a text that runs out first (n = 0 in its later windows), related
 pairs and unrelated ones, which fail at K = 64; the edge cases add pairs
 with an exact number of substitutions in their first window (a hit in
@@ -25,9 +27,9 @@ torch = pytest.importorskip("torch")
 from scrooge_tpu_torch.config import AlignConfig  # noqa: E402
 from scrooge_tpu_torch.ops import engine  # noqa: E402
 from torch_threads import one_intra_op_thread  # noqa: E402,F401
-from torch_window_harness import (assert_same,  # noqa: E402
+from torch_window_harness import (ET, assert_same,  # noqa: E402
                                   assert_subs_batch, build_harness,
-                                  ragged_batch, run_harness)
+                                  edge_batch, ragged_batch, run_harness)
 
 
 @pytest.fixture(scope="module")
@@ -65,6 +67,17 @@ def _case_id(wko, B, unrelated, subs, et=True):
     # G = 16: a hit in a pass's last row (3) and at K = 5; G = 32
     ((640, 5, 0), 8, 2, (3, 5), False),
     ((2048, 8, 1025), 5, 0, (2,), False),
+    # G = 4 at NW = 4, eight rows a pass: hits in the last row of a pass
+    # (rows 7, 15) and at 0
+    ((256, 256, 129), 9, 0, (7, 15, 0), True),
+    # K = 12 inside the pass of rows 8..15: a hit at K and at K-1, 13
+    # substitutions past K and unrelated pairs (FAIL_TB)
+    ((256, 12, 129), 10, 2, (12, 11, 13), True),
+    # the same without early termination, whose passes run on to K after
+    # a hit in a pass's last row (7) or at 0
+    ((256, 12, 129), 11, 2, (7, 0, 12, 13), False),
+    ((256, 256, 0), 7, 0, (), True),  # COLS = W+1, every R word stored
+    ((193, 193, 97), 9, 0, (), True),  # a top word of one bit
 ]])
 def test_lane_group_matches_plain(harness, wko, B, unrelated, subs, et):
     W, K, O = wko
@@ -83,4 +96,22 @@ def test_lane_group_matches_plain(harness, wko, B, unrelated, subs, et):
     assert_subs_batch(want, cfg, subs)
     if subs:
         assert int(args[4][3 + len(subs)]) == 100
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("et", ET)
+@pytest.mark.parametrize("wko", [
+    (256, 32, 129),  # four words: G = 4, eight rows a pass
+], ids=lambda w: "-".join(map(str, w)))
+def test_edge_pairs_match_plain(harness, wko, et):
+    """The edge pairs of the one-thread-a-pair kernels' host test at four
+    words, which the wide kernel runs: unrelated pairs failing at K = 32,
+    a text that runs out, one-character last windows, an empty read."""
+    W, K, O = wko
+    cfg = AlignConfig(W=W, K=K, O=O, early_termination=et)
+    args = edge_batch(cfg, 70)
+    maxw = cfg.max_windows(int(args[4].max()))
+    got = run_harness(harness, cfg, maxw, *args)
+    want = engine.align_windows_plain(cfg, maxw, *args)
+    assert int((want.failed == 0).sum()) > 35
     assert_same(got, want)

@@ -84,7 +84,8 @@ def test_wide_variant_source_applies(variant):
              "u32": "constexpr int UNROLL = 32;",
              "rows1": "constexpr int MAX_ROWS = 1;",
              "rows2": "constexpr int MAX_ROWS = 2;",
-             "t64": "constexpr int THREADS = 64;"}
+             "t64": "constexpr int THREADS = 64;",
+             "g8": "nw <= 4 ? (et ? &launch<8, true> : &launch<8, false>)"}
     if variant in knobs:
         assert knobs[variant] in got
     if variant == "nocs":

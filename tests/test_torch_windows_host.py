@@ -1,9 +1,9 @@
 """The one-thread-a-pair window kernels on the host, under sanitizers.
 
 ``tests/windows_host.cpp`` includes ``csrc/genasm_windows1.cu`` (one
-word, the main path's kernel) and ``csrc/genasm_windows.cu`` (two to four
-words) themselves, not copies, and runs each thread's body in turn. It is
-built with g++ under AddressSanitizer and UBSan into
+word, the main path's kernel) and ``csrc/genasm_windows.cu`` (two and
+three words) themselves, not copies, and runs each thread's body in turn.
+It is built with g++ under AddressSanitizer and UBSan into
 ``scrooge_tpu_torch/_build/`` and run with early termination on and off;
 ed, failed, every count and the runs must equal the plain engine's
 (``engine.align_windows_plain``) with the same setting. The batches are
@@ -12,7 +12,9 @@ one-character last windows, an empty read), with FAIL_TB lanes at K = 16,
 and ragged batches whose pairs have an exact number of substitutions in
 their first window: a hit at K where K is even (the row pair at d = K
 computes row K+1, which must not count) and at K-1, and one past K.
-Skips where g++ or the sanitizer runtime is absent.
+Four words and more run on the wide kernel, whose host harness is
+``tests/test_torch_wide_host.py``. Skips where g++ or the sanitizer
+runtime is absent.
 """
 
 import pytest
@@ -20,31 +22,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from scrooge_tpu_torch.config import AlignConfig  # noqa: E402
-from scrooge_tpu_torch.ops import engine, pack  # noqa: E402
-from scrooge_tpu_torch.utils.simulate import edge_pairs  # noqa: E402
+from scrooge_tpu_torch.ops import engine  # noqa: E402
 from torch_threads import one_intra_op_thread  # noqa: E402,F401
-from torch_window_harness import (assert_same,  # noqa: E402
+from torch_window_harness import (ET, assert_same,  # noqa: E402
                                   assert_subs_batch, build_harness,
-                                  ragged_batch, run_harness)
-
-ET = [pytest.param(True, id="eton"), pytest.param(False, id="etoff")]
+                                  edge_batch, ragged_batch, run_harness)
 
 
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     return build_harness(tmp_path_factory, "windows_host")
-
-
-def _edge_batch(cfg, B):
-    """edge_pairs as the engine's packed arguments, ragged in B (not a
-    multiple of the 64-thread block)."""
-    text, tlen, pattern, plen = edge_pairs(cfg.W + cfg.O + cfg.K, B, 300,
-                                           280, cfg.tb_limit)
-    tw = pack.pack_2bit(torch.from_numpy(text))
-    base = torch.arange(B, dtype=torch.int64) * (tw.shape[1] * 16)
-    return (tw, base, torch.from_numpy(tlen),
-            pack.pack_2bit(torch.from_numpy(pattern)),
-            torch.from_numpy(plen))
 
 
 @pytest.mark.parametrize("et", ET)
@@ -55,12 +42,11 @@ def _edge_batch(cfg, B):
     (64, 64, 0),     # COLS = W+1: column 64 stored
     (128, 128, 65),  # two words, the top one stored
     (192, 64, 2),    # three words, all stored; FAIL_TB lanes
-    (256, 32, 129),  # four words
 ], ids=lambda w: "-".join(map(str, w)))
 def test_edge_pairs_match_plain(harness, wko, et):
     W, K, O = wko
     cfg = AlignConfig(W=W, K=K, O=O, early_termination=et)
-    args = _edge_batch(cfg, 70)
+    args = edge_batch(cfg, 70)
     maxw = cfg.max_windows(int(args[4].max()))
     got = run_harness(harness, cfg, maxw, *args)
     want = engine.align_windows_plain(cfg, maxw, *args)

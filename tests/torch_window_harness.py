@@ -19,8 +19,11 @@ import torch
 
 from scrooge_tpu_torch.buildcache import BUILD_DIR
 from scrooge_tpu_torch.ops import _cuda, compact, engine, pack
+from scrooge_tpu_torch.utils.simulate import edge_pairs
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
+# early termination on and off, as test parameters
+ET = [pytest.param(True, id="eton"), pytest.param(False, id="etoff")]
 FLAGS = ("-std=c++17", "-O1", "-g", "-Wall", "-Wextra", "-Werror",
          "-Wno-unknown-pragmas", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=all", "-fno-omit-frame-pointer")
@@ -59,6 +62,18 @@ def build_harness(tmp_path_factory, name: str) -> str:
         assert proc.returncode == 0, proc.stderr
         os.replace(tmp, exe)
     return exe
+
+
+def edge_batch(cfg, B):
+    """``utils.simulate.edge_pairs`` as the engine's packed arguments,
+    ragged in B (not a multiple of a 64-thread block)."""
+    text, tlen, pattern, plen = edge_pairs(cfg.W + cfg.O + cfg.K, B, 300,
+                                           280, cfg.tb_limit)
+    tw = pack.pack_2bit(torch.from_numpy(text))
+    base = torch.arange(B, dtype=torch.int64) * (tw.shape[1] * 16)
+    return (tw, base, torch.from_numpy(tlen),
+            pack.pack_2bit(torch.from_numpy(pattern)),
+            torch.from_numpy(plen))
 
 
 def ragged_batch(seed, B, T, P, unrelated=0, rate=0.06, subs=(), tb=0):

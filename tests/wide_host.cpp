@@ -138,7 +138,8 @@ int main() {
                  K,                 O,             maxw,
                  R.data(),          ff.data(),     ed.data(),
                  failed.data(),     entries.data(), counts.data()};
-  if (NW <= 8) run<8>(P, et);
+  if (NW <= 4) run<4>(P, et);
+  else if (NW <= 8) run<8>(P, et);
   else if (NW <= 16) run<16>(P, et);
   else run<32>(P, et);
   write_all(ed);

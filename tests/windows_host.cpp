@@ -1,6 +1,6 @@
 // Host harness for the one-thread-a-pair window kernels,
 // scrooge_tpu_torch/csrc/genasm_windows1.cu (one word, W <= 64) and
-// scrooge_tpu_torch/csrc/genasm_windows.cu (two to four words), built by
+// scrooge_tpu_torch/csrc/genasm_windows.cu (two and three words), built by
 // tests/test_torch_windows_host.py with g++ under AddressSanitizer and
 // UBSan (g++ -I scrooge_tpu_torch/csrc).
 //
@@ -103,7 +103,7 @@ int main() {
   const bool et = head[5] != 0;
   const int64_t tw_n = head64[0], pstride = head64[1];
   const int NW = (W + 63) / 64;
-  if (W < 2 || NW > 4 || O < 0 || O >= W || K < 1 || maxw < 0 || B < 1 ||
+  if (W < 2 || NW > 3 || O < 0 || O >= W || K < 1 || maxw < 0 || B < 1 ||
       tw_n < 1 || pstride < 1)
     return 2;
   std::vector<uint32_t> text_words(tw_n), pattern_words(B * pstride);
@@ -140,10 +140,8 @@ int main() {
     auto* const kernel =
         NW == 2 ? (et ? &multi::genasm_windows_kernel<2, true>
                       : &multi::genasm_windows_kernel<2, false>)
-        : NW == 3 ? (et ? &multi::genasm_windows_kernel<3, true>
-                        : &multi::genasm_windows_kernel<3, false>)
-                  : (et ? &multi::genasm_windows_kernel<4, true>
-                        : &multi::genasm_windows_kernel<4, false>);
+                : (et ? &multi::genasm_windows_kernel<3, true>
+                      : &multi::genasm_windows_kernel<3, false>);
     run(B, [&] {
       kernel(tw, tw_n, tb, tl, pw, pstride, pl, B, W, K, O, maxw, R.data(),
              ff.data(), ed.data(), failed.data(), entries.data(),

@@ -138,7 +138,19 @@ class AlignStats:
     tail, in which no kernel of the call is in flight (spans.Call);
     allocator_misses counts the device segments and pinned host blocks
     the caching allocators took fresh during the call (0 on the CPU;
-    calls that run at once in one process share those counters)."""
+    calls that run at once in one process share those counters).
+
+    runs counts the CIGAR runs the device returned for the lanes that did
+    not fail. Where the config's kernel runs a thread a pair (W <= 192,
+    engine.pairs_per_warp 32), lane_work and warp_work say how full its
+    warps were: a lane's work is w = edit distance + windows used, a
+    proxy for the ET rows it filled (a window fills rows 0..its edit
+    distance; the reference counts 1.8-2.0 (ed + windows) rows a pair,
+    true candidates and decoys alike), lane_work is the sum of w and
+    warp_work the sum over each 32 consecutive lanes of a tile of their
+    count times their largest w, the lane time a warp spends at its
+    slowest lane's pace. All three come from the meta the tile has read
+    back already."""
 
     num_pairs: int = 0
     core_ns: int = 0
@@ -156,6 +168,9 @@ class AlignStats:
     edges_ns: int = 0         # the call's head and tail
     pair_python_ns: int = 0   # per-pair Python: pairs, results, assembly
     allocator_misses: int = 0
+    runs: int = 0             # CIGAR runs of the lanes that did not fail
+    lane_work: int = 0        # one-thread-a-pair kernels: sum of w
+    warp_work: int = 0        # and of 32 lanes' count x their largest w
     # per-lane failure reasons of the engine (ops/engine.FAIL_*)
     fail_tb_pairs: int = 0          # no window alignment within K
     fail_stall_pairs: int = 0       # zero-progress window
@@ -179,6 +194,8 @@ class AlignStats:
                 f" edges={f(self.edges_ns)}"
                 f" pair_python={f(self.pair_python_ns)}"
                 f" allocator_misses={self.allocator_misses}"
+                f" runs={self.runs} lane_work={self.lane_work}"
+                f" warp_work={self.warp_work}"
                 + (f" fail[tb={self.fail_tb_pairs} "
                    f"stall={self.fail_stall_pairs} "
                    f"incomplete={self.fail_incomplete_pairs}]"
@@ -198,6 +215,17 @@ class AlignStats:
         self.fail_stall_pairs += int(((m & engine.FAIL_STALL) != 0).sum())
         self.fail_incomplete_pairs += int(
             ((m & engine.FAIL_INCOMPLETE) != 0).sum())
+
+    def count_warp_work(self, eds, wused, warp: int = 32) -> None:
+        """Add a tile's lane_work and warp_work (class doc) from its lanes'
+        edit distances and windows used, lanes in launch order."""
+        w = np.maximum(np.asarray(eds, np.int64), 0) + np.asarray(wused)
+        if not len(w):
+            return
+        pad = -len(w) % warp
+        peak = np.pad(w, (0, pad)).reshape(-1, warp).max(1)
+        self.lane_work += int(w.sum())
+        self.warp_work += int(peak.sum()) * warp - int(peak[-1]) * pad
 
 
 def _runs_from_cigar(cigar: str) -> np.ndarray:
@@ -434,6 +462,10 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
         call.synced(sync.end)
     eds, totals, failed, wmax, wused = meta
     stats.count_fail_reasons(failed)
+    stats.runs += int(totals[failed == 0].sum(dtype=np.int64))
+    warp = engine.pairs_per_warp(cfg)
+    if warp > 1:
+        stats.count_warp_work(eds, wused, warp)
 
     toks = None
     with ExitStack() as held:

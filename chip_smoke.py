@@ -5,7 +5,7 @@
 Phases, one line each:
   1. toolchain: torch, CUDA, nvcc, triton, and the card as nvidia-smi
      reports it (its own line);
-  2. build: compile the four kernel sources from csrc/ with nvcc, one
+  2. build: compile the five kernel sources from csrc/ with nvcc, one
      process each, started together; registers and spills of every
      instantiation (each window kernel with early termination and
      without), and no kernel may spill;
@@ -28,13 +28,15 @@ Phases, one line each:
      1 Mbp genome, 16384 reads x 10 kbp, 95 % accuracy, seed 7), W=64
      K=64 O=33, one tile of 16384), strings then packed; the one-word
      kernel's launch count must grow and the multiword kernel must not
-     launch, both outputs must agree, sampled pairs must equal pyref and
-     carry valid CIGARs;
+     launch, the token kernel must launch once a tile of each call (and
+     AlignStats.token_kernel_tiles say so), both outputs must agree,
+     sampled pairs must equal pyref and carry valid CIGARs;
   5. kernel-only time of the same tile, CUDA events, 3 x 3 calls;
   6. the README's quick-start pair;
   7. wide path: the same tile at W=128 K=128 O=65 (two words), kernel
      against plain, then align_reads checked as in phase 4 (its runs read
-     back as one byte an entry, tb_limit 63), and its kernel-only time;
+     back as one byte an entry, tb_limit 63, so the token kernel must
+     not launch), and its kernel-only time;
      then align_reads at 192/192/97 and 256/256/129 on 512 reads of
      2 kbp, each held against plain and pyref (two bytes a run entry);
      then the benchmark cell's tile, 256/256/129 on the first 1,024 of
@@ -90,8 +92,9 @@ Phases, one line each:
      (two shards of 8192 lanes on two streams), after one call on one
      device for comparison, strings twice (the first call on new streams,
      timed apart) then packed: all 16384 alignments
-     must equal phase 4's, the one-word kernel must launch once a shard a
-     call and the multiword ones never; each shard's kernel time alone
+     must equal phase 4's, the one-word kernel and the token kernel must
+     launch once a shard a call and the multiword ones never; each
+     shard's kernel time alone
      and the shards' together; then two real processes
      (``python3 chip_smoke.py --dist-worker``, gloo, rank r on
      cuda:(r mod device_count)) read phase 4's dataset from files and run
@@ -107,7 +110,9 @@ Phases, one line each:
      then packed, and at 64/64/33 once more with the CIGARs decoded on
      one thread (api.DECODE_THREADS = 1): every alignment must equal the
      single-tile call's of phase 4 or 7 for the same pair, every tile
-     (shard) must launch its window kernel, and at W=128 both modes must
+     (shard) must launch its window kernel, the token kernel must launch
+     exactly once a tile (shard) at W=64 and never at W=128, and at
+     W=128 both modes must
      read back one byte a run entry; each call's wall clock,
      AlignStats stages and launches, then the same call under
      torch.profiler for the device's busy and idle share of it
@@ -138,7 +143,15 @@ Phases, one line each:
      the card's host in the API's permuted order and relabelled into the
      identity order; both must equal phase 4's strings for their pairs,
      the identity order must not scatter and the permuted one scatter
-     once a tile.
+     once a tile;
+ 16. the token kernel (csrc/genasm_tokens.cu) on a tile of w64_chained's
+     shape (1,024 pairs of PBSIM2 10 kbp reads, true candidates and
+     Poisson(1) decoys, 64/64/33, the window kernel's results): its rows
+     and token totals must equal the torch chain's it replaces on the card
+     (compact_tokenize, the totals' sync, compact_tokens) byte for byte;
+     both times in turns, the device memory each adds, and the kernel's
+     bound from the bytes it must move; the kernels line gives it phase
+     4's launches, those of the main path.
 
 In phases 3, 4, 7, 10 and 12 a path whose runs come back as runs (tb_limit
 > 31) prints its readback bytes beside its run entries (readback_check):
@@ -384,19 +397,21 @@ def readback_check(label, cfg, stats, packed, qlens) -> dict:
 
 
 def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
-    """align_reads through the public API, strings then packed, with both
-    window kernels' counts set to 0 just before and read just after;
-    checks both outputs agree, ``nsample`` pairs (the longest read among
-    them) equal pyref and ``ncigar`` CIGARs are valid (the bench's
-    check_output). Returns the counts, {kernel: {key: launches}}, and the
-    string output."""
+    """align_reads through the public API, strings then packed, with the
+    window kernels' and the token kernel's counts set to 0 just before
+    and read just after; checks both outputs agree, ``nsample`` pairs (the
+    longest read among them) equal pyref and ``ncigar`` CIGARs are valid
+    (the bench's check_output), and that the token kernel built the
+    tokens of every tile of both calls where the config takes tokens
+    (tokens.supports) and launched nowhere else. Returns the counts,
+    {kernel: {key: launches}}, and the string output."""
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch import bench
-    from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.ops import _cuda, tokens
 
     window_kernels = (_cuda.GENASM_WINDOWS1, _cuda.GENASM_WINDOWS,
                       _cuda.GENASM_WINDOWS_WIDE)
-    for k in window_kernels:
+    for k in (*window_kernels, _cuda.GENASM_TOKENS):
         k.counts.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -408,10 +423,20 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
                                     return_stats=True, return_packed=True,
                                     device=dev)
     pwall = time.perf_counter() - t0
-    counts = {k: dict(k.counts) for k in window_kernels}
-    if sum(sum(c.values()) for c in counts.values()) < 1:
+    counts = {k: dict(k.counts) for k in (*window_kernels,
+                                          _cuda.GENASM_TOKENS)}
+    if sum(sum(counts[k].values()) for k in window_kernels) < 1:
         raise AssertionError(f"{label}: the path never launched the kernel")
     n = len(ds.reads)
+    # one token launch a tile of each call (strings, packed)
+    tiles = -(-sum(len(r.locations) for r in ds.reads) // cfg.batch_tile)
+    want_tokens = 2 * tiles if tokens.supports(cfg) else 0
+    token_launches = sum(counts[_cuda.GENASM_TOKENS].values())
+    token_tiles = stats.token_kernel_tiles + pstats.token_kernel_tiles
+    if token_launches != want_tokens or token_tiles != want_tokens:
+        raise AssertionError(f"{label}: {token_launches} token kernel "
+                             f"launches, {token_tiles} tiles counted, "
+                             f"{want_tokens} expected")
     npyref, ncigar = bench.check_output(ds.genome.content,
                                         bench.pair_reads(ds.reads), cfg,
                                         strs, packed, nsample, ncigar, label)
@@ -420,7 +445,7 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
                                for _ in r.locations])
     phase(label, W=cfg.W, K=cfg.K, O=cfg.O, pairs=n,
           launches=json.dumps({k.source: c for k, c in counts.items()}),
-          retried_pairs=stats.retried_pairs,
+          token_kernel_tiles=token_tiles, retried_pairs=stats.retried_pairs,
           pyref_exact=npyref, valid_cigars=ncigar,
           wall_s=f"{wall:.3f}", aligns_per_s=f"{n / wall:.1f}",
           packed_wall_s=f"{pwall:.3f}",
@@ -1034,6 +1059,9 @@ def mesh_path(ds, prepared, main_strs, cfg):
                                     device=mesh)
     pwall = time.perf_counter() - t0
     counts = {k.source: dict(k.counts) for k in (one, *others)}
+    # the token kernel once a shard of a tile, in each of the three calls
+    tiles = -(-sum(len(r.locations) for r in ds.reads) // cfg.batch_tile)
+    token_launches = sum(_cuda.GENASM_TOKENS.counts.values())
     bad = sum((a.edit_distance, a.cigar) != (b.edit_distance, b.cigar)
               for a, b in zip(strs, main_strs))
     agree = ([a.cigar for a in strs] == packed_cigars(packed)
@@ -1063,7 +1091,8 @@ def mesh_path(ds, prepared, main_strs, cfg):
     phase("mesh-path", cards=len(set(mesh)), shards=len(mesh),
           mesh=repr([str(d) for d in mesh]), pairs=len(strs),
           equal_to_main_path=len(strs) - bad, packed_agrees=agree,
-          launches=json.dumps(counts), retried_pairs=stats.retried_pairs,
+          launches=json.dumps(counts), token_launches=token_launches,
+          retried_pairs=stats.retried_pairs,
           one_device_wall_s=f"{one_wall:.3f}",
           first_wall_s=f"{walls[0]:.3f}", wall_s=f"{wall:.3f}",
           aligns_per_s=f"{len(strs) / wall:.1f}",
@@ -1078,8 +1107,12 @@ def mesh_path(ds, prepared, main_strs, cfg):
                              f"main path's; strings and packed agree: "
                              f"{agree}")
     if (strs_launches < 2 * len(mesh) or counts[one.source].get(1, 0)
-            < 3 * len(mesh) or any(counts[k.source] for k in others)):
-        raise AssertionError(f"mesh path launches: {counts}")
+            < 3 * len(mesh) or any(counts[k.source] for k in others)
+            or token_launches != 3 * tiles * len(mesh)
+            or stats.token_kernel_tiles != tiles * len(mesh)
+            or pstats.token_kernel_tiles != tiles * len(mesh)):
+        raise AssertionError(f"mesh path launches: {counts}, "
+                             f"{token_launches} of the token kernel")
 
 
 def dist_worker(rank, world, port, data_dir, out_path) -> int:
@@ -1260,7 +1293,7 @@ def pipeline_path(ds, prepared, single, tmp):
     import scrooge_tpu_torch as st
     from scrooge_tpu_torch import api
     from scrooge_tpu_torch.bench import packed_cigars
-    from scrooge_tpu_torch.ops import _cuda
+    from scrooge_tpu_torch.ops import _cuda, tokens
     from scrooge_tpu_torch.profiling import pipeline
 
     # (W, K, O), device, threads that decode the CIGARs (None: the API's
@@ -1313,10 +1346,20 @@ def pipeline_path(ds, prepared, single, tmp):
                                      f"{len(want) - equal} alignments "
                                      "differ from the single tile's")
             shards = 1 if isinstance(dev, str) else len(dev)
-            if sum(sum(c.values()) for c in launches.values()) < \
-                    tiles * shards or n_kernels < 1:
-                raise AssertionError(f"pipeline W={W} {mode}: launches "
-                                     f"{launches}, {n_kernels} traced")
+            # the window kernels at least once a shard of a tile; the
+            # token kernel exactly once where the config takes tokens
+            token_launches = sum(launches.pop(
+                _cuda.GENASM_TOKENS.source, {}).values())
+            want_tokens = tiles * shards if tokens.supports(cfg) else 0
+            if (sum(sum(c.values()) for c in launches.values())
+                    < tiles * shards or n_kernels < 1
+                    or token_launches != want_tokens
+                    or stats.token_kernel_tiles != want_tokens):
+                raise AssertionError(
+                    f"pipeline W={W} {mode}: launches {launches}, "
+                    f"{token_launches} of the token kernel "
+                    f"({stats.token_kernel_tiles} tiles counted, "
+                    f"{want_tokens} expected), {n_kernels} traced")
     api.DECODE_THREADS = threads
 
 
@@ -1437,6 +1480,114 @@ def assembly_path(ds, prepared, main_strs, dev):
         if len(calls) != (0 if order == "identity"
                           else len(ps) * ASSEMBLY_REPS):
             raise AssertionError(f"assembly ({order}): {len(calls)} scatters")
+
+
+TOKENS_SOURCE = "scrooge_tpu_torch/csrc/genasm_tokens.cu"
+TOKENS_REPLACES = ("none: scrooge_tpu/ops/tokens.py:41-148 compact_tokenize "
+                   "+ compact_tokens (XLA)")
+TOKENS_REPS = 5
+HBM_BYTES_PER_S = 3.35e12
+
+
+def chained_tile(dev, seed=2**31 + 29, n_reads=560, B=1024):
+    """The window kernel's BatchResult for one tile of w64_chained's shape:
+    PBSIM2 CLR reads of 10 kbp at 95 % (portbench.generate), each with
+    its true position and Poisson(1) decoys on a 20 Mbp random genome,
+    the B longest pairs at 64/64/33, staged as align_reads stages them."""
+    import scrooge_tpu_torch as st
+    from portbench import generate
+    from scrooge_tpu_torch import api
+    from scrooge_tpu_torch.ops import engine, pack
+
+    cfg = st.AlignConfig(W=64, K=64, O=33)
+    gen = generate.generator(seed, dev)
+    genome, gcodes = generate.make_genome([20_000_000], gen, dev)
+    rs = generate.make_reads(genome, gcodes, n_reads, 10_000, 0.95,
+                             (6, 55, 39), 1.0, gen)
+    pairs = sorted(((loc.start_in_reference, r) for r in rs.reads
+                    for loc in r.locations),
+                   key=lambda p: -len(p[1].content))[:B]
+    glen = len(genome.content)
+    longest = len(pairs[0][1].content)
+    maxw = api._maxw(cfg, longest)
+    starts = np.array([s for s, _ in pairs], np.int64)
+    tlen = np.minimum(glen - starts, maxw * cfg.tb_limit + cfg.W)
+    plen = np.array([len(r.content) for _, r in pairs], np.int32)
+    pw = pack.to_device(pack.encode_pack_host([r.content for _, r in pairs],
+                                              longest), dev)
+    words = st.prepare_genome(genome).device_words(dev)
+    res = engine.align_windows(
+        cfg, maxw, words, torch.from_numpy(starts).to(dev),
+        torch.from_numpy(tlen.astype(np.int32)).to(dev), pw,
+        torch.from_numpy(plen).to(dev))
+    decoys = sum(len(r.locations) - 1 for r in rs.reads)
+    return cfg, res, decoys
+
+
+def tokens_path(dev, main_launches: int) -> dict:
+    """Phase 16: the token kernel on w64_chained's tile against the torch
+    chain it replaces on the card (compact_tokenize, the token totals'
+    sync, compact_tokens), in turns, CUDA events, TOKENS_REPS each: equal
+    bytes over every row, both times, the device memory each adds to the
+    tile's, and the kernel's bound (bytes of counts, of the entries'
+    sectors that hold runs, of the output rows and totals, over the HBM
+    rate). Returns the kernels-line entry, whose launches are
+    ``main_launches``, the main path's (phase 4)."""
+    from scrooge_tpu_torch.ops import compact, tokens
+
+    cfg, res, decoys = chained_tile(dev)
+    meta = compact.batch_meta(res).cpu().numpy()
+    B = meta.shape[1]
+    cap = max(int(meta[1].max()), 1)
+    ne = max(int(meta[3].max()), 1)
+    wcap = max(int(meta[4].max()), 1)
+    ent, cnt = res.entries[:wcap], res.counts[:wcap]
+
+    def chain():
+        toks, _, tot = tokens.compact_tokenize(ent, cnt, cap, ne)
+        tot = tot.cpu()
+        return tokens.compact_tokens(toks, max(int(tot.max()), 1)), tot
+
+    out, tot = tokens.lane_tokens(ent, cnt, cap)  # build and warm up
+    want, want_tot = chain()
+    torch.cuda.synchronize()
+    capT = want.shape[1]
+    err = int((tot.cpu() != want_tot).sum()) + int(
+        (out[:, :capT] != want).sum()) + int(out[:, capT:].any())
+    ms, chain_ms, peak = [], [], {}
+    base = torch.cuda.memory_allocated()
+    for _ in range(TOKENS_REPS):
+        for label, fn, times in (("kernel", lambda: tokens.lane_tokens(
+                ent, cnt, cap), ms), ("chain", chain, chain_ms)):
+            torch.cuda.reset_peak_memory_stats()
+            _, t = timed(fn)
+            times.append(t)
+            peak[label] = torch.cuda.max_memory_allocated() - base
+    counts = cnt.cpu().numpy().clip(0, ent.shape[1])
+    # a 32-byte sector holds 16 lanes' int16 runs of one (window, row)
+    groups = np.pad(counts, ((0, 0), (0, -B % 16))).reshape(wcap, -1, 16)
+    sectors = int(groups.max(2).sum())
+    nbytes = {"counts": 4 * wcap * B, "entry_sectors": 32 * sectors,
+              "out": B * 2 * cap + 4 * B}
+    bound_ms = sum(nbytes.values()) / HBM_BYTES_PER_S * 1e3
+    runs = int(meta[1][meta[2] == 0].sum())
+    phase("tokens", shape=f"W={cfg.W} K={cfg.K} O={cfg.O} B={B}",
+          decoys=decoys, wcap=wcap, ne=ne, cap=cap, capT=capT,
+          runs_per_pair=f"{runs / B:.2f}", tokens=int(want_tot.sum()),
+          kernel_ms=" ".join(f"{t:.3f}" for t in ms),
+          chain_ms=" ".join(f"{t:.3f}" for t in chain_ms),
+          kernel_peak_bytes=peak["kernel"], chain_peak_bytes=peak["chain"],
+          bound_ms=f"{bound_ms:.6f}", bytes=json.dumps(nbytes),
+          max_abs_err=err, main_path_launches=main_launches)
+    if err != 0:
+        raise AssertionError("the token kernel and the torch chain differ")
+    return {"name": "genasm_tokens", "route": "cuda",
+            "source": TOKENS_SOURCE, "replaces": TOKENS_REPLACES,
+            "launches": main_launches, "max_abs_err": err,
+            "ms": float(np.median(ms)),
+            "plain_ms": float(np.median(chain_ms)),
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "shape": f"W={cfg.W} K={cfg.K} O={cfg.O} B={B} wcap={wcap}"}
 
 
 def main() -> int:
@@ -1629,6 +1780,10 @@ def main() -> int:
 
     # ---- 15. packed assembly into pair order ----
     assembly_path(ds, prepared, main_strs, dev)
+
+    # ---- 16. the token kernel ----
+    kernels.append(tokens_path(
+        dev, sum(counts[1][_cuda.GENASM_TOKENS].values())))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

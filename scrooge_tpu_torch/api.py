@@ -150,7 +150,9 @@ class AlignStats:
     warp_work the sum over each 32 consecutive lanes of a tile of their
     count times their largest w, the lane time a warp spends at its
     slowest lane's pace. All three come from the meta the tile has read
-    back already."""
+    back already. token_kernel_tiles counts the tiles whose tokens the
+    token kernel built (ops/tokens.lane_tokens on a card, tb_limit <= 31):
+    0 on the CPU and on the run routes."""
 
     num_pairs: int = 0
     core_ns: int = 0
@@ -171,6 +173,7 @@ class AlignStats:
     runs: int = 0             # CIGAR runs of the lanes that did not fail
     lane_work: int = 0        # one-thread-a-pair kernels: sum of w
     warp_work: int = 0        # and of 32 lanes' count x their largest w
+    token_kernel_tiles: int = 0  # tiles whose tokens the token kernel built
     # per-lane failure reasons of the engine (ops/engine.FAIL_*)
     fail_tb_pairs: int = 0          # no window alignment within K
     fail_stall_pairs: int = 0       # zero-progress window
@@ -196,6 +199,7 @@ class AlignStats:
                 f" allocator_misses={self.allocator_misses}"
                 f" runs={self.runs} lane_work={self.lane_work}"
                 f" warp_work={self.warp_work}"
+                f" token_kernel_tiles={self.token_kernel_tiles}"
                 + (f" fail[tb={self.fail_tb_pairs} "
                    f"stall={self.fail_stall_pairs} "
                    f"incomplete={self.fail_incomplete_pairs}]"
@@ -467,7 +471,6 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
     if warp > 1:
         stats.count_warp_work(eds, wused, warp)
 
-    toks = None
     with ExitStack() as held:
         held.enter_context(lock)
         with span("compact", stats, "compact_ns", call, tile):
@@ -482,12 +485,11 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
             # (api.py:550)
             use_u8 = not use_tokens and cfg.tb_limit <= U8_MAX_TB_LIMIT
             if use_tokens:
-                toks, _, lane_tot = tokens.compact_tokenize(ent, cnt, cap,
-                                                            ne)
+                # (B, 2 cap) lane-major: the kernel on a card
+                dev_out, lane_tot = tokens.lane_tokens(ent, cnt, cap, ne)
+                stats.token_kernel_tiles += int(dev_out.is_cuda)
                 lane_tot = lane_tot.cpu().numpy()
                 capT = max(int(lane_tot.max(initial=0)), 1)
-                # (B, capT) lane-major
-                dev_out = tokens.compact_tokens(toks, capT)
                 pieces = [dev_out[c0:c1,
                                   :int(lane_tot[c0:c1].max(initial=0))]
                           for c0, c1 in chunks]
@@ -505,7 +507,7 @@ def _build_alignments(cfg: AlignConfig, res: engine.BatchResult,
             # the copies' enqueue
             with span("readback", stats, "readback_ns", call, tile):
                 staged = [_to_host(p) for p in pieces]
-                del ent, cnt, toks, dev_out, pieces
+                del ent, cnt, dev_out, pieces
                 held.close()
                 if packed_out and use_tokens:
                     # one batch-wide destination: lanes [a, b) write from

@@ -149,8 +149,18 @@ GENASM_FILL_LAB = CudaKernel(
      _P, _P,              # wed, per-lane sum over windows
      _P])                 # cudaStream_t
 
+# replaces, on a card, ops/tokens.lane_tokens_plain (the JAX package's
+# tokens.compact_tokenize + compact_tokens): a tile's runs to lane-major
+# tokens, a warp a lane; key 0, its one instantiation
+GENASM_TOKENS = CudaKernel(
+    "genasm_tokens.cu", "genasm_tokens_launch",
+    [_P, _P,              # entries (wcap, ne, B), counts (wcap, B)
+     _I, _I, _I, _I64,    # wcap, ne, B, capB
+     _P, _P,              # out (B, capB), lane_tot (B,)
+     _P])                 # cudaStream_t
+
 KERNELS = (GENASM_WINDOWS1, GENASM_WINDOWS, GENASM_WINDOWS_WIDE,
-           GENASM_FILL_LAB)
+           GENASM_FILL_LAB, GENASM_TOKENS)
 
 
 def build_all(kernels=KERNELS):

@@ -11,13 +11,17 @@ val = tok & 31):
   tag 4      extend the immediately preceding edit run by val (1..31)
 
 Only engine_xla's dense row layout exists in the port, so there is no
-sparse-row branch.
+sparse-row branch. ``lane_tokens`` is the route the API takes: on the CPU
+the torch chain (``lane_tokens_plain``), on a card the hand-written kernel
+``csrc/genasm_tokens.cu``, which gives the same bytes with no (rows x
+lanes) temporary and no scan.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _cuda
 from .compact import compact_flat, dense_valid, entries_to_u8
 
 TAG_EXT = 4
@@ -76,3 +80,41 @@ def compact_tokens(toks: torch.Tensor, capT: int) -> torch.Tensor:
     the layout the host decoder walks."""
     out, _ = compact_flat(toks, toks != 0, capT)
     return out.T.contiguous()
+
+
+def lane_tokens_plain(entries: torch.Tensor, counts: torch.Tensor, cap: int,
+                      ne3c: int = 0):
+    """Dense engine rows -> (tokens (B, 2*cap) uint8 lane-major, each lane's
+    tokens first and zeros after them; token totals (B,) int32), through
+    compact_tokenize and compact_tokens. ``cap`` is at least the largest
+    lane's run total, so no lane overflows; ne3c as in compact_tokenize."""
+    toks, _, lane_tot = compact_tokenize(entries, counts, cap, ne3c)
+    return compact_tokens(toks, 2 * cap), lane_tot
+
+
+def lane_tokens(entries: torch.Tensor, counts: torch.Tensor, cap: int,
+                ne3c: int = 0):
+    """lane_tokens_plain's result. CPU tensors take the plain version and
+    CUDA tensors the kernel (``_cuda.GENASM_TOKENS``, which reads every row
+    below a window's count and needs no ne3c, and refuses more than 64
+    rows a window, tb_limit > 31); there is no fallback between the
+    two."""
+    dev = entries.device
+    if dev.type == "cpu":
+        return lane_tokens_plain(entries, counts, cap, ne3c)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    wcap, ne, B = entries.shape
+    if (entries.dtype != torch.int16 or counts.dtype != torch.int32
+            or tuple(counts.shape) != (wcap, B) or counts.device != dev
+            or not entries.is_contiguous() or not counts.is_contiguous()):
+        raise ValueError("lane_tokens takes contiguous (wcap, ne, B) int16 "
+                         "entries and (wcap, B) int32 counts on one device")
+    out = torch.empty((B, 2 * cap), dtype=torch.uint8, device=dev)
+    lane_tot = torch.empty(B, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.GENASM_TOKENS.launch(
+            0, entries.data_ptr(), counts.data_ptr(), wcap, ne, B, 2 * cap,
+            out.data_ptr(), lane_tot.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return out, lane_tot

@@ -100,3 +100,11 @@ def test_chained_mix_on_the_card(mix):
     before = kern.counts[1]
     _check(mix, "cuda")
     assert kern.counts[1] == before + 1
+
+
+def test_the_cpu_route_builds_no_tokens_on_the_kernel(mix):
+    genome, rs, _ = mix
+    _, stats = st.align_reads(genome, rs.reads[:3], _config(),
+                              return_stats=True, device="cpu")
+    assert stats.token_kernel_tiles == 0 and stats.runs > 0
+    assert "token_kernel_tiles=0" in stats.breakdown()

@@ -509,3 +509,97 @@ def test_bench_on_cuda(cuda, monkeypatch, capsys):
     assert (line["kernel_aligns_min"] <= line["value"]
             <= line["kernel_aligns_max"])
     assert line["card"] != "cpu"
+
+
+def _tokens_equal_on_card(entries, counts, ne3c=0):
+    """The token kernel (ops/tokens.lane_tokens on the card) against the
+    torch route on the CPU, byte for byte over whole rows; one launch."""
+    from scrooge_tpu_torch.ops import tokens
+
+    totals = counts.cpu().clamp(0, entries.shape[1]).sum(0)
+    cap = max(int(totals.max()), 1)
+    kern = _cuda.GENASM_TOKENS
+    before = kern.counts[0]
+    got, got_tot = tokens.lane_tokens(entries.cuda(), counts.cuda(), cap)
+    torch.cuda.synchronize()
+    assert kern.counts[0] == before + 1
+    want, want_tot = tokens.lane_tokens_plain(entries.cpu(), counts.cpu(),
+                                              cap, ne3c)
+    assert torch.equal(got_tot.cpu(), want_tot)
+    assert torch.equal(got.cpu(), want)
+    return want_tot
+
+
+@pytest.mark.parametrize("seed, wcap, B, max_count", [
+    (1, 40, 1024, 31), (2, 100, 77, 31), (3, 1, 33, 63), (4, 480, 256, 31),
+    (5, 70, 130, 4095)])
+def test_token_kernel_matches_torch_route_on_random_layouts(cuda, seed, wcap,
+                                                            B, max_count):
+    from torch_window_harness import random_layout
+
+    entries, counts = random_layout(seed, wcap, B, max_count=max_count)
+    counts[:, 3 % B] = 0  # a lane with no runs
+    _tokens_equal_on_card(torch.from_numpy(entries),
+                          torch.from_numpy(counts))
+
+
+def test_token_kernel_matches_torch_route_on_chained_pairs(cuda):
+    """The window kernel's results at 64/64/33 on 1,024 pairs, half of
+    them true (indels and substitutions at 5 %) and half decoys
+    (unrelated), as a chained tile mixes them."""
+    from torch_window_harness import ragged_batch
+
+    cfg = st.AlignConfig(W=64, K=64, O=33)
+    args = ragged_batch(21, 1024, 2400, 2000, unrelated=512, rate=0.05)
+    maxw = cfg.max_windows(int(args[4].max()))
+    res = engine.align_windows(cfg, maxw, *(a.to(cuda) for a in args))
+    meta = compact.batch_meta(res).cpu().numpy()
+    assert int((meta[2] == 0).sum()) > 1000
+    wcap = max(int(meta[4].max()), 1)
+    tot = _tokens_equal_on_card(res.entries[:wcap], res.counts[:wcap],
+                                int(meta[3].max()))
+    # decoys give several times a true pair's tokens
+    assert tot[-512:].float().mean() > 3 * tot[8:512].float().mean()
+
+
+def test_align_reads_token_kernel_equals_cpu(cuda):
+    """align_reads on a chained mix (true candidates and Poisson(1) decoys)
+    in tiles of 128: strings and packed equal the CPU's, and every tile's
+    tokens came from the kernel, one launch a tile."""
+    from portbench import generate
+
+    gen = generate.generator(2**31 + 23, "cpu")
+    genome, gcodes = generate.make_genome([150_000, 50_000], gen, "cpu")
+    rs = generate.make_reads(genome, gcodes, 200, 300, 0.95, (6, 55, 39),
+                             1.0, gen)
+    cfg = st.AlignConfig(W=64, K=64, O=33, batch_tile=128)
+    tiles = -(-len(rs.pairs) // 128)
+    assert tiles >= 3
+    want = st.align_reads(genome, rs.reads, cfg, device="cpu")
+    kern = _cuda.GENASM_TOKENS
+    for packed in (False, True):
+        before = kern.counts[0]
+        got, stats = st.align_reads(genome, rs.reads, cfg, return_stats=True,
+                                    return_packed=packed, device=cuda)
+        assert (got.to_alignments() if packed else got) == want
+        assert stats.token_kernel_tiles == tiles
+        assert kern.counts[0] - before == tiles
+    # the runs' route (tb_limit > 31) does not take it
+    before = kern.counts[0]
+    _, stats = st.align_reads(genome, rs.reads[:4],
+                              st.AlignConfig(W=128, K=128, O=65),
+                              return_stats=True, device=cuda)
+    assert stats.token_kernel_tiles == 0 and kern.counts[0] == before
+
+
+def test_token_kernel_refuses_wide_windows_and_other_layouts(cuda):
+    from scrooge_tpu_torch.ops import tokens
+
+    entries = torch.zeros((3, 66, 8), dtype=torch.int16, device=cuda)
+    counts = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="arguments refused"):
+        tokens.lane_tokens(entries, counts, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tokens.lane_tokens(entries[:, :64].transpose(0, 1), counts, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tokens.lane_tokens(entries[:, :64], counts.to(torch.int64), 4)

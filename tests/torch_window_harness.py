@@ -1,11 +1,14 @@
-"""Helpers of the host harnesses of the window kernels
-(``tests/test_torch_windows_host.py`` and ``tests/test_torch_wide_host.py``).
+"""Helpers of the host harnesses of the kernels
+(``tests/test_torch_windows_host.py``, ``tests/test_torch_wide_host.py``
+and ``tests/test_torch_tokens_host.py``), and the dense run layouts the
+token kernel's tests on the host and on the card share.
 
-Each harness (``tests/windows_host.cpp``, ``tests/wide_host.cpp``)
-includes kernel sources of ``scrooge_tpu_torch/csrc/`` themselves, is
-built with g++ under AddressSanitizer and UBSan into
-``scrooge_tpu_torch/_build/<name>/`` once per content, reads the window
-engine's arguments on stdin and writes its outputs on stdout.
+Each harness (``tests/windows_host.cpp``, ``tests/wide_host.cpp``,
+``tests/tokens_host.cpp``) includes kernel sources of
+``scrooge_tpu_torch/csrc/`` themselves, is built with g++ under
+AddressSanitizer and UBSan into ``scrooge_tpu_torch/_build/<name>/`` once
+per content, reads its kernel's arguments on stdin and writes its outputs
+on stdout.
 """
 
 import hashlib
@@ -22,6 +25,7 @@ from scrooge_tpu_torch.ops import _cuda, compact, engine, pack
 from scrooge_tpu_torch.utils.simulate import edge_pairs
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
+OP_EQ, OP_X, OP_I, OP_D = 0, 1, 2, 3
 # early termination on and off, as test parameters
 ET = [pytest.param(True, id="eton"), pytest.param(False, id="etoff")]
 FLAGS = ("-std=c++17", "-O1", "-g", "-Wall", "-Wextra", "-Werror",
@@ -171,3 +175,35 @@ def assert_subs_batch(want, cfg, subs):
             assert int(want.failed[3 + k]) == 0
     if subs:
         assert int(want.failed[3 + len(subs)]) == 0
+
+
+def _run(op, count):
+    return (op << engine.ENTRY_OP_SHIFT) | count
+
+
+def random_layout(seed, wcap, B, ne=64, max_count=31, empty=0.2):
+    """(entries, counts): each window a random number of runs in [0, ne],
+    ``empty`` of the windows none; ops at random, counts in [1,
+    max_count]; the rows past a window's count hold garbage."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, ne + 1, (wcap, B)).astype(np.int32)
+    counts[rng.random((wcap, B)) < empty] = 0
+    ops = rng.integers(0, 4, (wcap, ne, B))
+    cnts = rng.integers(1, max_count + 1, (wcap, ne, B))
+    entries = _run(ops, cnts).astype(np.int16)
+    return entries, counts
+
+
+def layout_with(lanes, ne=64, wcap=None):
+    """(entries, counts) from each lane's windows, a list of [(op, count)]
+    lists; the rows past a window's runs hold garbage."""
+    wcap = wcap or max(len(w) for w in lanes)
+    B = len(lanes)
+    entries = np.full((wcap, ne, B), _run(OP_D, 7), np.int16)
+    counts = np.zeros((wcap, B), np.int32)
+    for b, windows in enumerate(lanes):
+        for w, runs in enumerate(windows):
+            counts[w, b] = len(runs)
+            for e, (op, n) in enumerate(runs):
+                entries[w, e, b] = _run(op, n)
+    return entries, counts

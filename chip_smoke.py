@@ -28,8 +28,8 @@ Phases, one line each:
      1 Mbp genome, 16384 reads x 10 kbp, 95 % accuracy, seed 7), W=64
      K=64 O=33, one tile of 16384), strings then packed; the one-word
      kernel's launch count must grow and the multiword kernel must not
-     launch, the token kernel must launch once a tile of each call (and
-     AlignStats.token_kernel_tiles say so), both outputs must agree,
+     launch, the token kernel must launch once a tile of each call
+     (its launch counter), both outputs must agree,
      sampled pairs must equal pyref and carry valid CIGARs;
   5. kernel-only time of the same tile, CUDA events, 3 x 3 calls;
   6. the README's quick-start pair;
@@ -432,11 +432,9 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
     tiles = -(-sum(len(r.locations) for r in ds.reads) // cfg.batch_tile)
     want_tokens = 2 * tiles if tokens.supports(cfg) else 0
     token_launches = sum(counts[_cuda.GENASM_TOKENS].values())
-    token_tiles = stats.token_kernel_tiles + pstats.token_kernel_tiles
-    if token_launches != want_tokens or token_tiles != want_tokens:
+    if token_launches != want_tokens:
         raise AssertionError(f"{label}: {token_launches} token kernel "
-                             f"launches, {token_tiles} tiles counted, "
-                             f"{want_tokens} expected")
+                             f"launches, {want_tokens} expected")
     npyref, ncigar = bench.check_output(ds.genome.content,
                                         bench.pair_reads(ds.reads), cfg,
                                         strs, packed, nsample, ncigar, label)
@@ -445,7 +443,7 @@ def drive_path(label, cfg, ds, prepared, dev, nsample, ncigar):
                                for _ in r.locations])
     phase(label, W=cfg.W, K=cfg.K, O=cfg.O, pairs=n,
           launches=json.dumps({k.source: c for k, c in counts.items()}),
-          token_kernel_tiles=token_tiles, retried_pairs=stats.retried_pairs,
+          token_launches=token_launches, retried_pairs=stats.retried_pairs,
           pyref_exact=npyref, valid_cigars=ncigar,
           wall_s=f"{wall:.3f}", aligns_per_s=f"{n / wall:.1f}",
           packed_wall_s=f"{pwall:.3f}",
@@ -1053,6 +1051,7 @@ def mesh_path(ds, prepared, main_strs, cfg):
         walls.append(time.perf_counter() - t0)
     wall = walls[-1]
     strs_launches = one.counts[1]
+    strs_tokens = _cuda.GENASM_TOKENS.counts[0]
     t0 = time.perf_counter()
     packed, pstats = st.align_reads(prepared, ds.reads, cfg,
                                     return_stats=True, return_packed=True,
@@ -1109,8 +1108,7 @@ def mesh_path(ds, prepared, main_strs, cfg):
     if (strs_launches < 2 * len(mesh) or counts[one.source].get(1, 0)
             < 3 * len(mesh) or any(counts[k.source] for k in others)
             or token_launches != 3 * tiles * len(mesh)
-            or stats.token_kernel_tiles != tiles * len(mesh)
-            or pstats.token_kernel_tiles != tiles * len(mesh)):
+            or strs_tokens != 2 * tiles * len(mesh)):
         raise AssertionError(f"mesh path launches: {counts}, "
                              f"{token_launches} of the token kernel")
 
@@ -1353,13 +1351,11 @@ def pipeline_path(ds, prepared, single, tmp):
             want_tokens = tiles * shards if tokens.supports(cfg) else 0
             if (sum(sum(c.values()) for c in launches.values())
                     < tiles * shards or n_kernels < 1
-                    or token_launches != want_tokens
-                    or stats.token_kernel_tiles != want_tokens):
+                    or token_launches != want_tokens):
                 raise AssertionError(
                     f"pipeline W={W} {mode}: launches {launches}, "
                     f"{token_launches} of the token kernel "
-                    f"({stats.token_kernel_tiles} tiles counted, "
-                    f"{want_tokens} expected), {n_kernels} traced")
+                    f"({want_tokens} expected), {n_kernels} traced")
     api.DECODE_THREADS = threads
 
 

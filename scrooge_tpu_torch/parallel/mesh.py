@@ -9,12 +9,12 @@ no shard talks to another.
 A mesh here is an ordered tuple of indexed torch devices, which may
 repeat one: ``["cuda:0", "cuda:0"]`` runs two shards on two streams of
 one card, ``["cpu"] * 4`` four shards of the plain engine. Each shard runs
-on a host thread of its own with a CUDA stream of its own; the kernel
-launch and the native pack and format release the GIL, so the threads
-overlap. What the JAX mesh needs for XLA to partition one SPMD program
-(``NamedSharding``, ``shard_map``, lane counts in multiples of 128 a
-device, the per-mesh compaction) has no counterpart: a shard may hold any
-number of lanes, 0 included.
+on a host thread of its own (a mesh of one on the caller's) with a CUDA
+stream of its own; the kernel launch and the native pack and format
+release the GIL, so the threads overlap. What the JAX mesh needs for XLA
+to partition one SPMD program (``NamedSharding``, ``shard_map``, lane
+counts in multiples of 128 a device, the per-mesh compaction) has no
+counterpart: a shard may hold any number of lanes, 0 included.
 """
 
 from __future__ import annotations
@@ -144,7 +144,8 @@ def run_sharded(mesh: Mesh, fn: Callable[[int, torch.device], object],
     """``fn(k, mesh[k])`` for every shard k, each on a host thread of its
     own with a CUDA stream of its own current (none on the CPU); the
     results in shard order. Raises the first failing shard's exception,
-    after every shard has ended.
+    after every shard has ended. A mesh of one runs its shard on the
+    calling thread, with no executor.
 
     By default the streams are new ones (shard_streams), and after the
     shards the device's current stream waits for them. A caller that
@@ -159,17 +160,21 @@ def run_sharded(mesh: Mesh, fn: Callable[[int, torch.device], object],
         with on_stream(streams[k]):
             return fn(k, mesh[k])
 
-    if pool is None:
-        with ThreadPoolExecutor(max_workers=len(mesh)) as p:
-            futures = [p.submit(one, k) for k in range(len(mesh))]
-    else:
-        futures = [pool.submit(one, k) for k in range(len(mesh))]
-        wait(futures)
-    if own:
-        for d, s in zip(mesh, streams):
-            if s is not None:
-                torch.cuda.current_stream(d).wait_stream(s)
-    return [f.result() for f in futures]
+    try:
+        if len(mesh) == 1:
+            return [one(0)]
+        if pool is None:
+            with ThreadPoolExecutor(max_workers=len(mesh)) as p:
+                futures = [p.submit(one, k) for k in range(len(mesh))]
+        else:
+            futures = [pool.submit(one, k) for k in range(len(mesh))]
+            wait(futures)
+        return [f.result() for f in futures]
+    finally:
+        if own:
+            for d, s in zip(mesh, streams):
+                if s is not None:
+                    torch.cuda.current_stream(d).wait_stream(s)
 
 
 class Shard(NamedTuple):

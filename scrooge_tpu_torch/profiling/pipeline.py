@@ -210,8 +210,9 @@ def idle_by_span(path: str, n_gaps: int = 10) -> IdleReport:
 def span_sums(path: str) -> Dict[int, dict]:
     """Per call id of a traced ``align_reads`` call: its ``scrooge.call``
     wall and, for each thread, the seconds of each stage whose range no
-    other stage's range holds (readback sits inside format), so a
-    thread's stages sum to at most the time it spent in the call."""
+    other stage's range holds (a nested range counts once, in the one
+    that holds it), so a thread's stages sum to at most the time it
+    spent in the call."""
     events, _, caller = _call_window(path)
     out: Dict[int, dict] = {}
     for name, ranges in _host_spans(events, caller).items():

@@ -13,8 +13,9 @@ record_function's ``args`` string does not reach the chrome trace, so a
 range carries its call's id and its tile's index in its name:
 ``scrooge.pack call=3 tile=1``; ``parse`` takes such a name apart. Every
 span of one ``align_reads``/``align_pairs`` call shares its id (``Call``).
-Spans nest by time on their own thread: the caller's stages under
-``scrooge.call``, the worker's readback under its ``scrooge.format``.
+Spans nest by time on their own thread only under ``scrooge.call``, which
+holds the caller's stages; the worker's follow one another, a chunk's
+``scrooge.readback`` and then its ``scrooge.format``.
 
 torch.profiler records the ranges of the thread that started it only,
 unless it is asked for every thread (``profile``, as ``pipeline.py``

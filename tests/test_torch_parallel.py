@@ -11,6 +11,7 @@ numpy; every comparison is exact equality.
 import random
 import sys
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -203,19 +204,27 @@ def test_unalignable_pair_on_mesh_raises_as_jax_does():
 
 
 def test_one_device_runs_no_thread(monkeypatch, pairs203):
-    """A mesh of one device (given alone or as a list of one) runs the
-    tile loop in the caller's thread, with no split."""
-    def no_threads(*args):
-        raise AssertionError("a one-device call went through run_sharded")
+    """A mesh of one device (given alone or as a list of one) launches
+    its tiles on the caller's thread; a mesh of two on shard threads."""
+    real, seen = engine.align_batch, []
 
-    monkeypatch.setattr(api, "run_sharded", no_threads)
+    def recording(*args, **kwargs):
+        seen.append(threading.get_ident())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "align_batch", recording)
     texts, queries, want = pairs203
     cfg = AlignConfig(batch_tile=128)
+    me = threading.get_ident()
     for device in ("cpu", ["cpu"], torch.device("cpu")):
+        seen.clear()
         assert _key(st.align_pairs(texts[:20], queries[:20], cfg,
                                    device=device)) == want[:20]
-    with pytest.raises(AssertionError, match="run_sharded"):
-        st.align_pairs(texts[:20], queries[:20], cfg, device=["cpu"] * 2)
+        assert seen == [me], device
+    seen.clear()
+    assert _key(st.align_pairs(texts[:20], queries[:20], cfg,
+                               device=["cpu"] * 2)) == want[:20]
+    assert len(seen) == 2 and me not in seen
 
 
 def _batch(seed, B, T=240, P=200):
@@ -368,6 +377,12 @@ def test_run_sharded_order_threads_and_errors():
     assert M.run_sharded(mesh, fn) == [(k, torch.device("cpu"))
                                        for k in range(4)]
     assert threading.get_ident() not in seen.values()
+    # a mesh of one runs on the calling thread, with no executor
+    seen.clear()
+    with ThreadPoolExecutor(1) as pool:
+        assert M.run_sharded(mesh[:1], fn, pool=pool) == [
+            (0, torch.device("cpu"))]
+    assert seen == {0: threading.get_ident()}
 
     def fails(k, dev):
         if k == 2:

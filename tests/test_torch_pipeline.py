@@ -15,6 +15,7 @@ comparison is exact.
 
 import threading
 
+import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
@@ -310,3 +311,41 @@ def test_transient_lock_is_one_a_device():
         torch.device("cpu"))
     assert engine.transient_lock("cuda:0") is not engine.transient_lock(
         "cuda:1")
+
+
+@pytest.mark.parametrize("wko,route", [((64, 64, 33), "tokens"),
+                                       ((128, 128, 65), "uint8"),
+                                       ((256, 256, 129), "uint16")])
+def test_route_table_maps_configs_to_readback_routes(wko, route):
+    """_route maps tb_limit 31 to the tokens, 63 to uint8 runs and 127 to
+    uint16 runs; each route's compaction, readback and decoders give one
+    hand-made layout's CIGARs and packed runs."""
+    from scrooge_tpu_torch.ops import compact, tokens
+    from torch_window_harness import layout_with
+
+    W, K, O = wko
+    r = api._route(st.AlignConfig(W=W, K=K, O=O))
+    assert (r.compact, r.lane_major) == {
+        "tokens": (tokens.lane_tokens, True),
+        "uint8": (compact.compact_entries_u8, False),
+        "uint16": (compact.compact_entries, False)}[route]
+    # ops "=XID": lane 0 5=1X3= then 2D4=, lane 1 no runs, lane 2 7D
+    entries, counts = layout_with([[[(0, 5), (1, 1), (0, 3)],
+                                    [(3, 2), (0, 4)]], [], [[(3, 7)]]])
+    res = engine.BatchResult(None, None, torch.from_numpy(entries),
+                             torch.from_numpy(counts))
+    # edit distance, run total, failure bits, most runs a window, windows
+    meta = np.array([[3, 0, 7], [5, 0, 1], [0, 0, 0], [3, 0, 1],
+                     [2, 0, 1]], np.int32)
+    stats = api.AlignStats()
+    got = []
+    for packed in (False, True):
+        staged, lane_tot, chunks = api._compact(r, res, meta, stats, None,
+                                                None)
+        got.append(api._read_back(r, staged, lane_tot, chunks, packed,
+                                  stats, None, None, None))
+    assert got[0] == ["5=1X3=2D4=", "", "7D"]
+    flat, offs = got[1]
+    assert offs.tolist() == [0, 5, 5, 6]
+    assert flat.tolist() == [5, 1 << 12 | 1, 3, 3 << 12 | 2, 4, 3 << 12 | 7]
+    assert stats.compact_ns > 0 and stats.format_ns > 0

@@ -9,6 +9,7 @@ trace written by hand, whose answers are worked out in the comments.
 """
 
 import json
+import sys
 
 import pytest
 import torch
@@ -92,7 +93,8 @@ def _ranges(path):
 def test_profiler_trace_holds_every_stage(ds, tmp_path):
     """Under the profiler each stage is a range named with the call's id
     and the tile's index; the caller's stages lie inside scrooge.call on
-    its thread, each readback inside a format of its tile."""
+    its thread, and a tile's readback and format ranges never overlap on
+    the worker's."""
     path = str(tmp_path / "trace.json")
     with spans.profile(cuda=False) as prof:
         with torch.profiler.record_function("align_reads"):
@@ -114,12 +116,38 @@ def test_profiler_trace_holds_every_stage(ds, tmp_path):
               if s == "scrooge.kernel_wait"}
     assert worker and call["tid"] not in worker
     formats = [(t, e) for s, _, t, e in parsed if s == "scrooge.format"]
-    for s, _, tile, e in parsed:
-        if s == "scrooge.readback":
-            assert any(t == tile and f["tid"] == e["tid"]
-                       and f["ts"] <= e["ts"]
-                       and e["ts"] + e["dur"] <= f["ts"] + f["dur"]
-                       for t, f in formats)
+    readbacks = [(t, e) for s, _, t, e in parsed if s == "scrooge.readback"]
+    assert formats and readbacks
+    for tile, r in readbacks:
+        assert r["tid"] in worker
+        for t, f in formats:
+            if t == tile and f["tid"] == r["tid"]:
+                assert (r["ts"] + r["dur"] <= f["ts"]
+                        or f["ts"] + f["dur"] <= r["ts"])
+
+
+def test_format_and_readback_fields_are_their_ranges(ds, tmp_path):
+    """A strings call's format_ns and readback_ns are each the summed
+    durations of their ranges (within 1 % plus 50 us a range, the
+    profiler's own cost around a span): neither is derived from the
+    other. A long switch interval keeps the other thread from taking the
+    GIL between a range's edge and its span's clock reading."""
+    path = str(tmp_path / "trace.json")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1.0)
+    try:
+        with spans.profile(cuda=False) as prof:
+            _, stats = _align(ds, "reads", False)
+    finally:
+        sys.setswitchinterval(interval)
+    prof.export_chrome_trace(path)
+    for stage, ns in (("format", stats.format_ns),
+                      ("readback", stats.readback_ns)):
+        durs = [e["dur"] * 1e3 for e in _ranges(path)
+                if spans.parse(e["name"])[0] == spans.PREFIX + stage]
+        assert durs and ns > 0, stage
+        assert ns == pytest.approx(sum(durs), rel=0.01,
+                                   abs=50e3 * len(durs)), stage
 
 
 def test_no_profiler_no_record_function(ds, monkeypatch):

@@ -1,6 +1,6 @@
 """Smoke run of the torch port on one NVIDIA GPU (built for an H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against PATH ...]
 
 Phases, one line each:
   1. toolchain: torch, CUDA, nvcc, triton, and the card as nvidia-smi
@@ -151,7 +151,17 @@ Phases, one line each:
      (compact_tokenize, the totals' sync, compact_tokens) byte for byte;
      both times in turns, the device memory each adds, and the kernel's
      bound from the bytes it must move; the kernels line gives it phase
-     4's launches, those of the main path.
+     4's launches, those of the main path;
+ 17. the one-word window kernel (a warp a pair) on the same tile shape:
+     its output and row counters against the plain version's, its bound,
+     its row fill (row work over row slots), and the instantiation
+     without early termination (key 257) against the same output; the
+     kernels line gives it phase 4's launches. With ``--against PATH
+     ...``, each file given (another version of csrc/genasm_windows1.cu,
+     such as the parent's from ``git archive``) is held to the same
+     outputs, ET on and off, and timed with the kernel in turns; the
+     window lab times the kernel's variants
+     (``python -m scrooge_tpu_torch.tools.window_lab``).
 
 In phases 3, 4, 7, 10 and 12 a path whose runs come back as runs (tb_limit
 > 31) prints its readback bytes beside its run entries (readback_check):
@@ -173,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import os
@@ -269,6 +280,8 @@ def max_abs_diff(a, b) -> int:
     cb, tb = compact.compact_entries(b.entries, b.counts, cap)
     diffs += [int((ta.long() - tb.long()).abs().max().item()),
               int((ca.long() - cb.long()).abs().max().item())]
+    if a.rows is not None and b.rows is not None:  # one word: row counters
+        diffs.append(int((a.rows.cpu() - b.rows.cpu()).abs().max().item()))
     return max(diffs)
 
 
@@ -1486,10 +1499,12 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 def chained_tile(dev, seed=2**31 + 29, n_reads=560, B=1024):
-    """The window kernel's BatchResult for one tile of w64_chained's shape:
-    PBSIM2 CLR reads of 10 kbp at 95 % (portbench.generate), each with
-    its true position and Poisson(1) decoys on a 20 Mbp random genome,
-    the B longest pairs at 64/64/33, staged as align_reads stages them."""
+    """One tile of w64_chained's shape: PBSIM2 CLR reads of 10 kbp at 95 %
+    (portbench.generate), each with its true position and Poisson(1)
+    decoys on a 20 Mbp random genome, the B longest pairs at 64/64/33,
+    staged as align_reads stages them. Returns (cfg, windows, the
+    engine's arguments, the window kernel's BatchResult on them, decoys
+    drawn)."""
     import scrooge_tpu_torch as st
     from portbench import generate
     from scrooge_tpu_torch import api
@@ -1512,12 +1527,12 @@ def chained_tile(dev, seed=2**31 + 29, n_reads=560, B=1024):
     pw = pack.to_device(pack.encode_pack_host([r.content for _, r in pairs],
                                               longest), dev)
     words = st.prepare_genome(genome).device_words(dev)
-    res = engine.align_windows(
-        cfg, maxw, words, torch.from_numpy(starts).to(dev),
-        torch.from_numpy(tlen.astype(np.int32)).to(dev), pw,
-        torch.from_numpy(plen).to(dev))
+    args = (words, torch.from_numpy(starts).to(dev),
+            torch.from_numpy(tlen.astype(np.int32)).to(dev), pw,
+            torch.from_numpy(plen).to(dev))
+    res = engine.align_windows(cfg, maxw, *args)
     decoys = sum(len(r.locations) - 1 for r in rs.reads)
-    return cfg, res, decoys
+    return cfg, maxw, args, res, decoys
 
 
 def tokens_path(dev, main_launches: int) -> dict:
@@ -1531,7 +1546,7 @@ def tokens_path(dev, main_launches: int) -> dict:
     ``main_launches``, the main path's (phase 4)."""
     from scrooge_tpu_torch.ops import compact, tokens
 
-    cfg, res, decoys = chained_tile(dev)
+    cfg, _, _, res, decoys = chained_tile(dev)
     meta = compact.batch_meta(res).cpu().numpy()
     B = meta.shape[1]
     cap = max(int(meta[1].max()), 1)
@@ -1586,7 +1601,66 @@ def tokens_path(dev, main_launches: int) -> dict:
             "shape": f"W={cfg.W} K={cfg.K} O={cfg.O} B={B} wcap={wcap}"}
 
 
-def main() -> int:
+def windows1_path(dev, ops_rate, main_launches: int, against=()) -> dict:
+    """Phase 17: the one-word kernel on w64_chained's tile (chained_tile),
+    its output and row counters held to the plain version's, its bound
+    and row fill beside it; then the instantiation without early
+    termination against the same output. Each file in ``against``
+    (another version of the source, such as the parent's) is held to the
+    same outputs, ET on and off, and timed with the kernel in turns
+    (window_lab.measure). Returns the kernels-line entry, whose launches
+    are ``main_launches``, the main path's (phase 4)."""
+    from scrooge_tpu_torch.ops import engine
+    from scrooge_tpu_torch.profiling import model
+    from scrooge_tpu_torch.tools import window_lab
+
+    cfg, maxw, args, _, decoys = chained_tile(dev)
+    B = int(args[4].shape[0])
+    cmp = compare(cfg, maxw, args, "w64_chained tile")
+    plain = cmp["plain"]
+    slots, work = (int(x) for x in plain.rows)
+    bound_ms, bound_by, detail = model.window_bound(cfg, maxw, args, plain,
+                                                    ops_rate)
+    phase("windows1-chained", W=cfg.W, K=cfg.K, O=cfg.O, B=B,
+          decoys=decoys, maxw=maxw, row_slots=slots, row_work=work,
+          row_fill=f"{work / slots:.4f}", kernel_ms=f"{cmp['ms']:.3f}",
+          bound_ms=f"{bound_ms:.6f}", bound_by=bound_by, **detail)
+    off = dataclasses.replace(cfg, early_termination=False)
+    got, off_ms = timed(engine.align_windows, off, maxw, *args)
+    err = max_abs_diff(got._replace(rows=None), plain)
+    phase("windows1-chained-etoff", kernel_ms=f"{off_ms:.3f}",
+          row_slots=int(got.rows[0]), max_abs_err=err)
+    if err:
+        raise AssertionError("the ET-off outputs on the w64_chained tile "
+                             "differ from the ET-on plain version's")
+    for k, file in enumerate(against, 1):
+        kern = window_lab.variant_kernel("full", path=file)
+        res, _ = window_lab.launch(kern, off, maxw, args, 0,
+                                   window_lab.thread_pair_r_words(off, B))
+        err = max_abs_diff(res, plain)
+        phase("windows1-against-etoff", file=file, max_abs_err=err)
+        if err:
+            raise AssertionError(f"{file}: ET-off outputs differ")
+    rows = (window_lab.measure(("full",), (cfg, maxw, args, B),
+                               against=against) if against else [])
+    for r in rows:
+        phase("windows1-turns", variant=r["variant"],
+              samples_ms=" ".join(f"{x:.3f}" for x in r["samples"]),
+              median_ms=f"{r['median_ms']:.3f}", same=r["same"],
+              ptxas=repr(r["ptxas"]))
+        if not r["same"]:
+            raise AssertionError(f"{r['variant']}: output differs from the "
+                                 "engine's on the w64_chained tile")
+    return {"name": "genasm_windows1[NW=1,w64_chained]", "route": "cuda",
+            "source": WINDOWS1_SOURCE, "replaces": WINDOWS_REPLACES,
+            "launches": main_launches,
+            "max_abs_err": cmp["max_abs_err"], "ms": cmp["ms"],
+            "plain_ms": cmp["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": f"W={cfg.W} K={cfg.K} O={cfg.O} B={B} chained"}
+
+
+def main(against=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -1781,6 +1855,10 @@ def main() -> int:
     kernels.append(tokens_path(
         dev, sum(counts[1][_cuda.GENASM_TOKENS].values())))
 
+    # ---- 17. the one-word kernel on w64_chained's tile ----
+    kernels.append(windows1_path(
+        dev, ops_rate, counts[1][_cuda.GENASM_WINDOWS1].get(1, 0), against))
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1792,4 +1870,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--against"]:
+        sys.exit(main(tuple(sys.argv[2:])))
     sys.exit(main())

@@ -144,7 +144,11 @@ class AlignStats:
     calls that run at once in one process share those counters).
 
     runs counts the CIGAR runs the device returned for the lanes that did
-    not fail. Where the config's kernel runs a thread a pair (W <= 192,
+    not fail. At one word (W <= 64) row_slots and row_work are the window
+    kernel's row counters (engine.BatchResult.rows: the rows <= K its
+    passes of 32 spanned, and the rows up to each window's first hit), so
+    row_work / row_slots says how much of its passes' work was needed.
+    Where the config's kernel runs a thread a pair (W = 65..192,
     engine.pairs_per_warp 32), lane_work and warp_work say how full its
     warps were: a lane's work is w = edit distance + windows used, a
     proxy for the ET rows it filled (a window fills rows 0..its edit
@@ -152,8 +156,8 @@ class AlignStats:
     true candidates and decoys alike), lane_work is the sum of w and
     warp_work the sum over each 32 consecutive lanes of a tile of their
     count times their largest w, the lane time a warp spends at its
-    slowest lane's pace. All three come from the meta the tile has read
-    back already."""
+    slowest lane's pace. All come from the meta the tile reads back (the
+    row counters right after it)."""
 
     num_pairs: int = 0
     core_ns: int = 0
@@ -172,6 +176,8 @@ class AlignStats:
     pair_python_ns: int = 0   # per-pair Python: pairs, results, assembly
     allocator_misses: int = 0
     runs: int = 0             # CIGAR runs of the lanes that did not fail
+    row_slots: int = 0        # one word: rows <= K of the kernel's passes
+    row_work: int = 0         # and rows up to each window's first hit
     lane_work: int = 0        # one-thread-a-pair kernels: sum of w
     warp_work: int = 0        # and of 32 lanes' count x their largest w
     # per-lane failure reasons of the engine (ops/engine.FAIL_*)
@@ -197,7 +203,8 @@ class AlignStats:
                 f" edges={f(self.edges_ns)}"
                 f" pair_python={f(self.pair_python_ns)}"
                 f" allocator_misses={self.allocator_misses}"
-                f" runs={self.runs} lane_work={self.lane_work}"
+                f" runs={self.runs} row_slots={self.row_slots}"
+                f" row_work={self.row_work} lane_work={self.lane_work}"
                 f" warp_work={self.warp_work}"
                 + (f" fail[tb={self.fail_tb_pairs} "
                    f"stall={self.fail_stall_pairs} "
@@ -464,12 +471,17 @@ def _route(cfg: AlignConfig) -> _Route:
 def _wait_meta(cfg: AlignConfig, res: engine.BatchResult, stats: AlignStats,
                tns: int, call: Optional[Call], tile: Optional[int]):
     """The kernel_wait stage: the meta readback, the sync that ends the
-    engine's time (``core_ns``), and the counters read from the meta.
-    Returns the (5, B) meta of compact.batch_meta on the host."""
+    engine's time (``core_ns``), and the counters read from the meta and,
+    at one word, the engine's row counters. Returns the (5, B) meta of
+    compact.batch_meta on the host."""
     with span("kernel_wait", stats, "kernel_wait_ns", call, tile) as sync:
         with engine.transient_lock(res.entries.device):
             meta = compact.batch_meta(res)
         meta = meta.cpu().numpy()
+        if res.rows is not None:
+            slots, work = res.rows.tolist()
+            stats.row_slots += slots
+            stats.row_work += work
     stats.core_ns += sync.end - tns
     if call is not None:
         call.synced(sync.end)

@@ -1,7 +1,7 @@
-// Helpers of the one-thread-a-pair window kernels, genasm_windows1.cu (one
-// word) and genasm_windows.cu (two and three words): bit masks and the
-// window set-up from packed 2-bit characters (16 a 32-bit word, char k of
-// a word in bits [2k, 2k+2)).
+// Helpers of the window kernels of one word, genasm_windows1.cu (a warp
+// a pair), and of two and three words, genasm_windows.cu (a thread a
+// pair): bit masks and the window set-up from packed 2-bit characters (16
+// a 32-bit word, char k of a word in bits [2k, 2k+2)).
 //
 // Device code; tests/windows_host.cpp defines __device__, __forceinline__,
 // __ldg and __funnelshift_r for the host before it includes the kernels.

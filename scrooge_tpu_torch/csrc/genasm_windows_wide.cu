@@ -87,9 +87,9 @@
 // B*pattern_stride words; entries[w][e][b] = op << 12 | count, counts[w][b]
 // runs in window w.
 //
-// The warp's code (wide_warp) also compiles as host C++:
-// tests/wide_host.cpp defines the warp primitives for the host, where the
-// 32 threads of a warp run in lockstep over an array, and checks it under
+// The warp's code (wide_warp) also compiles as host C++, with the warp
+// primitives of warp_lanes.cuh: tests/wide_host.cpp runs the 32 threads
+// of a warp in lockstep over an array, and checks it under
 // AddressSanitizer and UBSan.
 
 #include <cstddef>
@@ -134,33 +134,10 @@ struct Params {
 
 }  // namespace
 
+#include "warp_lanes.cuh"
+
 #ifdef __CUDACC__
-#include <cuda_runtime.h>
-
-#define LANE_FN __device__ __forceinline__
-
 namespace {
-
-// A value of each thread of the warp: on the card every thread holds its
-// own, and FOR_THREADS runs its body once, for the thread's own t.
-template <class T>
-struct Lanes {
-  T v;
-  __device__ T& operator[](int) { return v; }
-  __device__ const T& operator[](int) const { return v; }
-};
-
-struct Warp {
-  int t_lo, t_hi;  // the threads this code runs: [t, t+1), t the lane id
-};
-
-// thread t gets thread t-DELTA's x (a thread t < DELTA its own)
-template <int DELTA>
-__device__ __forceinline__ Lanes<uint64_t> shfl_up64(
-    const Warp&, const Lanes<uint64_t>& x) {
-  return {(uint64_t)__shfl_up_sync(0xffffffffu, (unsigned long long)x.v,
-                                   DELTA)};
-}
 
 // thread t gets thread t-1's x, within each group of G (its first thread
 // its own)
@@ -170,13 +147,6 @@ __device__ __forceinline__ Lanes<unsigned> shfl_up(const Warp&,
   return {__shfl_up_sync(0xffffffffu, x.v, 1, G)};
 }
 
-// bit t: p of thread t
-__device__ __forceinline__ unsigned ballot(const Warp&, const Lanes<bool>& p) {
-  return __ballot_sync(0xffffffffu, p.v);
-}
-
-__device__ __forceinline__ void warp_sync(const Warp&) { __syncwarp(); }
-
 __device__ __forceinline__ uint32_t load_ro(const uint32_t* p) {
   return __ldg(p);
 }
@@ -185,8 +155,6 @@ __device__ __forceinline__ uint32_t load_ro(const uint32_t* p) {
 __device__ __forceinline__ void store_r(uint64_t* p, uint64_t v) {
   __stcs((unsigned long long*)p, (unsigned long long)v);
 }
-
-__device__ __forceinline__ int first_set(unsigned x) { return __ffs((int)x); }
 
 __device__ __forceinline__ uint64_t brev64(uint64_t x) { return __brevll(x); }
 
@@ -198,16 +166,9 @@ __device__ __forceinline__ uint32_t funnel_r(uint32_t lo, uint32_t hi,
 
 }  // namespace
 #else
-// Compiled by the host harness, which defines HostLanes, HostWarp,
-// shfl_up64, shfl_up, ballot, warp_sync, load_ro, store_r, first_set,
+// Compiled by the host harness, which defines shfl_up, load_ro, store_r,
 // brev64 and funnel_r before it includes this file.
-template <class T>
-using Lanes = HostLanes<T, WARP>;
-using Warp = HostWarp;
-#define LANE_FN inline
 #endif
-
-#define FOR_THREADS(w, t) for (int t = (w).t_lo; t < (w).t_hi; ++t)
 
 namespace {
 

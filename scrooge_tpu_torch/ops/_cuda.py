@@ -13,6 +13,7 @@ import collections
 import ctypes
 import glob
 import os
+import re
 import shutil
 import threading
 import time
@@ -25,6 +26,17 @@ CSRC = os.path.join(_PKG, "csrc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def source_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in ``csrc/<source>``,
+    for the host code that must agree with a kernel's compile-time
+    constant."""
+    with open(os.path.join(CSRC, source)) as f:
+        found = re.findall(rf"^constexpr int {name} = (\d+);", f.read(), re.M)
+    if len(found) != 1:
+        raise ValueError(f"{source}: {len(found)} definitions of {name}")
+    return int(found[0])
 
 
 def find_nvcc() -> str:
@@ -112,15 +124,16 @@ GENASM_WINDOWS = CudaKernel(
      _P, _P, _P, _P,      # ed, failed, entries, counts
      _P])                 # cudaStream_t
 
-# the window kernel for one word (W <= 64): the forefront in registers;
-# keyed by engine.kernel_key, whose NW must be 1. No forefront scratch.
+# the window kernel for one word (W <= 64): a warp a pair, R and the
+# forefront in shared memory; keyed by engine.kernel_key, whose NW must be
+# 1. No scratch: its one buffer is the two row counters it adds to.
 GENASM_WINDOWS1 = CudaKernel(
     "genasm_windows1.cu", "genasm_windows1_launch",
     [_P, _I64,            # text words, their count
      _P, _P,              # text base chars, text len
      _P, _I64, _P,        # pattern words, words per pattern row, pattern len
      _I, _I, _I, _I, _I,  # B, W, K, O, max_windows
-     _P,                  # R scratch
+     _P,                  # row counters (2 int64: row slots, row work)
      _P, _P, _P, _P,      # ed, failed, entries, counts
      _P])                 # cudaStream_t
 

@@ -6,12 +6,13 @@ Port of the JAX package's window engines:
   and the Pallas kernel ``slab_step_kernel`` -> ``_multi_window_kernel``
   (scrooge_tpu/ops/engine_pallas.py:367-1123), with its multiword helpers
   (``_mw_*``, ``_shl1_u32``, ``_ones_shifted_u32``, :241-334). On the card
-  this is one hand-written kernel launch for all windows, one thread per
-  pair, which replaces the slab loop and the per-pair segment copy:
-  ``csrc/genasm_windows1.cu`` for one-word bitvectors (W <= 64) and
-  ``csrc/genasm_windows.cu`` for two and three words (W <= 192); both set
-  windows up from the packed words, fill two rows a pass and run the TPU
-  kernel's level traceback. The choice follows the config alone.
+  this is one hand-written kernel launch for all windows, which replaces
+  the slab loop and the per-pair segment copy: ``csrc/genasm_windows1.cu``
+  for one-word bitvectors (W <= 64), a warp a pair on a row-parallel
+  wavefront with R in shared memory, and ``csrc/genasm_windows.cu`` for
+  two and three words (W <= 192), a thread a pair; both set windows up
+  from the packed words and run the TPU kernel's level traceback. The
+  choice follows the config alone.
 - ``engine_xla._window_step`` / ``_align_scan`` / ``align_batch[_mapped]``
   (scrooge_tpu/ops/engine_xla.py:105-443), which the JAX package runs for
   every W its Pallas kernel cannot hold (W > 256). On the card that is
@@ -88,6 +89,9 @@ MULTIWORD_MAX_NW = 3
 SCRATCH_SHARE = 0.75
 # forefront slots below column 0 in genasm_windows_wide.cu (its FF_PAD)
 WIDE_FF_PAD = 72
+# rows a pass of genasm_windows1.cu, read from its ROWS: with early
+# termination a window's passes end with the one that holds its first hit
+WINDOWS1_ROWS = _cuda.source_constant("genasm_windows1.cu", "ROWS")
 # flag of a kernel key (kernel_key): the instantiation without early
 # termination, which fills every row d = 0..K (each .cu's ET_OFF)
 ET_OFF = 1 << 8
@@ -105,6 +109,12 @@ class BatchResult(NamedTuple):
     # with early termination off a lane fills K+1 times that. The kernel
     # does the same work and leaves this None.
     work: Optional[torch.Tensor] = None
+    # (2,) int64 at one word (W <= 64), from genasm_windows1.cu and the
+    # plain version alike (row_counts): row slots, the rows <= K that the
+    # kernel's passes spanned, and row work, the rows up to each window's
+    # first hit (wed + 1, or K + 1 where no row hits), summed over every
+    # lane's windows. None at more words.
+    rows: Optional[torch.Tensor] = None
 
 
 def check_config(cfg: AlignConfig) -> None:
@@ -230,16 +240,33 @@ def group_size(W: int) -> int:
 
 def pairs_per_warp(cfg: AlignConfig) -> int:
     """Pairs a warp of the config's kernel runs: 32 at one thread a pair
-    (W <= 192), one for the wide kernel (a warp a pair, W >= 193). A
-    launch's lanes come in these units."""
-    return 32 if num_words(cfg.W) <= MULTIWORD_MAX_NW else 1
+    (genasm_windows.cu, W = 65..192), one where a warp runs a pair (the
+    one-word kernel, W <= 64, and the wide kernel, W >= 193). A launch's
+    lanes come in these units."""
+    return 32 if 1 < num_words(cfg.W) <= MULTIWORD_MAX_NW else 1
+
+
+def row_counts(cfg: AlignConfig, wed: torch.Tensor,
+               hit: torch.Tensor) -> torch.Tensor:
+    """(2,) int64 row slots and row work (BatchResult.rows) of windows
+    whose first hit is ``wed`` where ``hit``: a window takes passes of
+    WINDOWS1_ROWS rows up to the one that holds its first hit with early
+    termination, else (or where no row hits) every row <= K."""
+    K1 = cfg.K + 1
+    work = torch.where(hit, wed + 1, K1)
+    slots = torch.full_like(work, K1)
+    if cfg.early_termination:
+        passes = torch.div(wed, WINDOWS1_ROWS, rounding_mode="floor") + 1
+        slots = torch.where(hit, (passes * WINDOWS1_ROWS).clamp(max=K1),
+                            slots)
+    return torch.stack([slots.sum(), work.sum()]).to(torch.int64)
 
 
 def scratch_words(cfg: AlignConfig, B: int):
     """int64 words of the kernel's (R, forefront) scratch for B lanes.
 
-    R: columns i < W-O+1 (DENT). The one-word kernel stores one word a
-    column and keeps its forefront in registers (no scratch). The
+    R: columns i < W-O+1 (DENT). The one-word kernel keeps R and its
+    forefront in shared memory (no scratch: (0, 0)). The
     multiword kernels store only the MSB-aligned words that hold bits
     [O-1, W), which the traceback reads: NW - max(O-1, 0) // 64 of them.
     genasm_windows.cu (two and three words) keeps rows d <= K+1 (the row
@@ -255,7 +282,7 @@ def scratch_words(cfg: AlignConfig, B: int):
     """
     nw = num_words(cfg.W)
     if nw == 1:
-        return (cfg.K + 2) * cfg.columns * (-(-B // 32) * 32), 0
+        return 0, 0
     stored = nw - max(cfg.O - 1, 0) // WORD
     if nw <= MULTIWORD_MAX_NW:
         lanes = -(-B // 32) * 32
@@ -269,9 +296,12 @@ def launch_chunks(cfg: AlignConfig, B: int, budget_bytes: int):
     """Lane ranges [lo, hi) that split B lanes into launches whose scratch
     (scratch_words) takes at most ``budget_bytes`` each: as few launches
     as the budget allows, every one but the last a whole number of warps.
+    A kernel with no scratch (one word) takes the tile in one launch.
     Raises MemoryError when not even one warp's pairs fit."""
     unit = pairs_per_warp(cfg)
     per_unit = 8 * sum(scratch_words(cfg, unit))
+    if per_unit == 0:
+        return [(0, B)] if B else []
     units = int(budget_bytes) // per_unit
     if units < 1:
         raise MemoryError(
@@ -313,7 +343,9 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
     under the device's transient_lock; ``budget_bytes`` (default
     SCRATCH_SHARE of free_bytes) bounds one launch's scratch. A range
     after the first writes its runs to its own buffers, which are copied
-    into place; the split changes no output."""
+    into place; the split changes no output. The one-word kernel takes
+    no scratch, so one launch, and in its place the two row counters it
+    adds to (BatchResult.rows)."""
     _check_inputs(text_words, text_base, text_len, pattern_words,
                   pattern_len)
     kernel = window_kernel(cfg)
@@ -325,6 +357,8 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
     entries = torch.zeros((max_windows, NE, B), dtype=torch.int16,
                           device=dev)
     counts = torch.empty((max_windows, B), dtype=torch.int32, device=dev)
+    rows = (torch.zeros(2, dtype=torch.int64, device=dev)
+            if kernel is _cuda.GENASM_WINDOWS1 else None)
     if budget_bytes is None:
         budget_bytes = int(SCRATCH_SHARE * free_bytes(dev))
     chunks = launch_chunks(cfg, B, budget_bytes) if B else []
@@ -335,8 +369,9 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
         cnt = counts if whole else torch.empty(
             (max_windows, hi - lo), dtype=torch.int32, device=dev)
         with transient_lock(dev), torch.cuda.device(dev):
-            scratch = [torch.empty(n, dtype=torch.int64, device=dev)
-                       for n in scratch_words(cfg, hi - lo) if n]
+            scratch = [rows] if rows is not None else [
+                torch.empty(n, dtype=torch.int64, device=dev)
+                for n in scratch_words(cfg, hi - lo) if n]
             kernel.launch(kernel_key(cfg), text_words.data_ptr(),
                           text_words.numel(), text_base[lo:].data_ptr(),
                           text_len[lo:].data_ptr(),
@@ -355,7 +390,7 @@ def _align_windows_cuda(cfg, max_windows, text_words, text_base, text_len,
         if not whole:
             entries[:, :, lo:hi] = ent
             counts[:, lo:hi] = cnt
-    return BatchResult(ed, failed, entries, counts)
+    return BatchResult(ed, failed, entries, counts, rows=rows)
 
 
 class _Words:
@@ -462,6 +497,7 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     entries = zeros(max_windows, NE, B, dtype=torch.int16)
     counts = zeros(max_windows, B, dtype=torch.int32)
     work = zeros(3, B)
+    row_ctr = zeros(2) if NW == 1 else None
 
     for w in range(max_windows):
         act = ~done
@@ -531,6 +567,8 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
 
         # ---- traceback (pyref.genasm_tb), one step per iteration ----
         tb = act & found
+        if row_ctr is not None:
+            row_ctr += row_counts(cfg, wed[act], found[act])
         i, j, dd = zeros(B), zeros(B), wed.clone()
         cur_op = torch.full((B,), OP_NONE, dtype=i64, device=dev)
         cur_cnt, nfl = zeros(B), zeros(B)
@@ -594,4 +632,5 @@ def align_windows_plain(cfg: AlignConfig, max_windows: int, text_words,
     incomplete = (failed == 0) & (read_idx < plen)
     failed = failed | torch.where(incomplete, FAIL_INCOMPLETE, 0).to(
         torch.int32)
-    return BatchResult(ed.to(torch.int32), failed, entries, counts, work)
+    return BatchResult(ed.to(torch.int32), failed, entries, counts, work,
+                       row_ctr)

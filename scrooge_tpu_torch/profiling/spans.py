@@ -81,9 +81,13 @@ class span:
             if _autograd_profiler._is_profiler_enabled else None)
 
     def __enter__(self) -> "span":
+        # the clock reads before the range opens and (below) before it
+        # closes: entering and leaving a range lets go of the GIL after
+        # its own time stamp, so the wait to take it back falls inside
+        # both the range and the span
+        self.start = _now()
         if self.rf is not None:
             self.rf.__enter__()
-        self.start = _now()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:

@@ -7,12 +7,14 @@ at the source's configuration:
 
 ``csrc/genasm_windows1.cu`` (one word, W=64 K=64 O=33, the main path):
 
-  full     the source as it is: the kernel the main path launches
+  full     the source as it is: the kernel the main path launches, a
+           warp a pair, 32 rows a pass at a row a thread, each thread a
+           column behind the one above (the row above's cell comes down
+           by a shuffle the step it is used)
   clocks   full with SM clock reads (clock64) around each window's three
-           sections, set-up, fill and traceback, summed per lane
-  ch4      CH = 4 traceback offsets a batch of R loads (full has 8)
-  ch16     CH = 16
-  t32      32 threads a block (full has 64)
+           sections, set-up, fill and traceback, summed per pair
+  u8       UNROLL = 8: the first hit looked for every 8 steps, so a pass
+           with a hit ends up to 8 steps sooner (full: 16)
 
 ``csrc/genasm_windows.cu`` (two and three words, W=128 K=128 O=65, the
 wide path):
@@ -60,13 +62,19 @@ in the fill lab.
     python -m scrooge_tpu_torch.tools.window_lab [variant ...] \\
         [--source genasm_windows1.cu|genasm_windows.cu|
                   genasm_windows_wide.cu|genasm_fill_lab.cu] \\
-        [--reads N] [--kernel_file PATH] [--wko W K O]
+        [--reads N] [--kernel_file PATH] [--against PATH ...]
+        [--wko W K O]
 
 ``--reads`` defaults to 16384 (1024 for the wide source). ``--kernel_file``
 builds the variants from another version of the source (the parent's,
-unpacked with ``git archive``), with the same entry point and scratch.
-``--wko`` runs the tile at another W, K, O than the source's own (one
-the source's entry point takes).
+unpacked with ``git archive``), with the same entry point and scratch; at
+one word the argument that takes the row counters is sized for the R
+scratch the one-thread-a-pair version of the kernel took there
+(``thread_pair_r_words``). ``--against`` adds each file given (another
+version of the source, such as the parent's) as the variant
+``against1``, ``against2``, ..., held to the same output and timed in
+the same turns. ``--wko`` runs the tile at another W, K, O than the
+source's own (one the source's entry point takes).
 
 needs a CUDA card: there is no plain version of a timing variant.
 """
@@ -74,6 +82,7 @@ needs a CUDA card: there is no plain version of a timing variant.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import re
 import statistics
@@ -100,7 +109,7 @@ def _clock(k: int) -> str:
             "(unsigned long long)(c - c_at); c_at = c; }\n")
 
 
-# both kernels share these anchors and the names LB, K and row_stride
+# the multiword kernel's anchors, and its names LB, K and row_stride
 _CLOCKS = (
     _before("  for (int w = 0; w < max_windows; ++w) {\n",
             "  unsigned long long cyc[3] = {0, 0, 0};  // by section\n"
@@ -118,6 +127,27 @@ _CLOCKS = (
             " * row_stride;\n"
             "  cy[b] = cyc[0];\n  cy[nb + b] = cyc[1];\n"
             "  cy[2 * nb + b] = cyc[2];\n"),
+)
+
+
+# the one-word kernel's: a pair's sums, made by every thread alike and
+# written by thread 0 after the row counters, three words a pair (launch
+# allocates them)
+_W1_CLOCKS = (
+    _before("  for (int win = 0; win < P.max_windows; ++win) {\n",
+            "  unsigned long long cyc[3] = {0, 0, 0};  // by section\n"
+            "  long long c_at = 0;\n"),
+    _before("      // ---- window set-up from packed words, the same in "
+            "every thread ----\n", "      c_at = clock64();\n"),
+    _before("      // ---- DP fill (pyref.genasm_dc), ROWS rows a pass ----\n",
+            _clock(0)),
+    _before("      if (wed < 0) {\n        failed |= FAIL_TB;", _clock(1)),
+    _before("        // ---- carry update (engine_xla.py:339-350) ----\n",
+            _clock(2)),
+    _before("    count_add(P.rows, slots);\n",
+            "    P.rows[2 + b] = (int64_t)cyc[0];\n"
+            "    P.rows[2 + nb + b] = (int64_t)cyc[1];\n"
+            "    P.rows[2 + 2 * nb + b] = (int64_t)cyc[2];\n"),
 )
 
 
@@ -162,11 +192,9 @@ WIDE_CLOCK_WORDS = 4 * 32  # words of clock sums a pair, at most
 SOURCES = {
     "genasm_windows1.cu": (_cuda.GENASM_WINDOWS1, (64, 64, 33), {
         "full": (),
-        "clocks": _CLOCKS,
-        "ch4": (("constexpr int CH = 8;", "constexpr int CH = 4;"),),
-        "ch16": (("constexpr int CH = 8;", "constexpr int CH = 16;"),),
-        "t32": (("constexpr int THREADS = 64;",
-                 "constexpr int THREADS = 32;"),),
+        "clocks": _W1_CLOCKS,
+        "u8": (("constexpr int UNROLL = 16;",
+                "constexpr int UNROLL = 8;"),),
     }),
     "genasm_windows.cu": (_cuda.GENASM_WINDOWS, (128, 128, 65), {
         "full": (),
@@ -255,7 +283,10 @@ def variant_kernel(variant: str, source: str = DEFAULT_SOURCE,
     kernel = SOURCES[source][0]
     if variant == "full" and path is None:
         return kernel
-    stem = os.path.splitext(kernel.source)[0] + ("_file" if path else "")
+    # a file of its own for each version of the source built at once
+    tag = hashlib.sha256(os.path.abspath(path or "").encode()).hexdigest()
+    stem = os.path.splitext(kernel.source)[0] + (
+        f"_file{tag[:8]}" if path else "")
     out = os.path.join(BUILD_DIR, "window_lab", f"{stem}_{variant}.cu")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
@@ -264,19 +295,28 @@ def variant_kernel(variant: str, source: str = DEFAULT_SOURCE,
     return _cuda.CudaKernel(path, kernel.symbol, kernel.argtypes[1:])
 
 
-def launch(kernel, cfg, maxw, args, extra: int = 0):
+def thread_pair_r_words(cfg, B: int) -> int:
+    """int64 words of the R scratch that the one-thread-a-pair version of
+    genasm_windows1.cu took in the argument that now takes the row
+    counters: rows d <= K+1 of COLS columns, in blocks of 32 lanes."""
+    return (cfg.K + 2) * cfg.columns * (-(-B // 32) * 32)
+
+
+def launch(kernel, cfg, maxw, args, extra: int = 0, words: int = 0):
     """One launch with the engine's scratch (engine.scratch_words) and
     ``extra`` * B more int64 words after R. Returns (BatchResult, those
     extra words as an (extra, B) tensor). The wide kernel's clock sums go
     to the forefront scratch instead, past B * (W + 128) * NW words: there
-    they come back as (extra * B / 4, 4), a row a thread."""
+    they come back as (extra * B / 4, 4), a row a thread. The one-word
+    kernel, which has no scratch, gets its two row counters and the extra
+    words after them, in a buffer of at least ``words`` words."""
     tw, base, tlen, pw, plen = args
     dev, B = pw.device, int(plen.shape[0])
-    ed = torch.empty(B, dtype=torch.int32, device=dev)
-    failed = torch.empty(B, dtype=torch.int32, device=dev)
-    entries = torch.zeros((maxw, engine.entry_rows(cfg), B),
-                          dtype=torch.int16, device=dev)
-    counts = torch.empty((maxw, B), dtype=torch.int32, device=dev)
+    if engine.num_words(cfg.W) == 1:
+        rows = torch.zeros(max(2 + extra * B, words), dtype=torch.int64,
+                           device=dev)
+        res = _launch(kernel, cfg, maxw, args, (rows.data_ptr(),))
+        return res, rows[2:2 + extra * B].view(extra, B)
     nr, nf = engine.scratch_words(cfg, B)
     wide = engine.window_kernel(cfg) is _cuda.GENASM_WINDOWS_WIDE
     R = torch.empty(nr + (0 if wide else extra * B), dtype=torch.int64,
@@ -288,6 +328,22 @@ def launch(kernel, cfg, maxw, args, extra: int = 0):
               if wide and extra else
               torch.empty(nf, dtype=torch.int64, device=dev))
         scratch += (ff.data_ptr(),)
+    res = _launch(kernel, cfg, maxw, args, scratch)
+    if wide:
+        return res, ff[at:].view(-1, 4)
+    return res, R[nr:].view(extra, B)
+
+
+def _launch(kernel, cfg, maxw, args, scratch) -> engine.BatchResult:
+    """The kernel's launch on the tile with the scratch pointers given;
+    its outputs."""
+    tw, base, tlen, pw, plen = args
+    dev, B = pw.device, int(plen.shape[0])
+    ed = torch.empty(B, dtype=torch.int32, device=dev)
+    failed = torch.empty(B, dtype=torch.int32, device=dev)
+    entries = torch.zeros((maxw, engine.entry_rows(cfg), B),
+                          dtype=torch.int16, device=dev)
+    counts = torch.empty((maxw, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         kernel.launch(engine.kernel_key(cfg), tw.data_ptr(), tw.numel(),
                       base.data_ptr(), tlen.data_ptr(), pw.data_ptr(),
@@ -296,11 +352,7 @@ def launch(kernel, cfg, maxw, args, extra: int = 0):
                       failed.data_ptr(), entries.data_ptr(),
                       counts.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
-    if wide:
-        return (engine.BatchResult(ed, failed, entries, counts),
-                ff[at:].view(-1, 4))
-    return (engine.BatchResult(ed, failed, entries, counts),
-            R[nr:].view(extra, B))
+    return engine.BatchResult(ed, failed, entries, counts)
 
 
 def _same(a, b) -> bool:
@@ -350,25 +402,36 @@ def _rows(kernels, cases, same, samples, extra=None):
 
 
 def measure(variants, staged, rounds: int = 3, reps: int = 3,
-            source: str = DEFAULT_SOURCE, path: str | None = None):
+            source: str = DEFAULT_SOURCE, path: str | None = None,
+            against=()):
     """Each variant of ``source`` (of the file at ``path``, if given)
     built, held against the engine's own output on the staged tile, then
-    timed in turns: ``rounds`` samples of ``reps`` calls each. Returns one
-    dict per variant."""
+    timed in turns: ``rounds`` samples of ``reps`` calls each; the files
+    in ``against`` (other versions of the source) as the variants
+    ``against1``, ``against2``, ... in the same turns. Returns one dict
+    per variant."""
     cfg, maxw, args, _ = staged
     kernels = {v: variant_kernel(v, source, path) for v in variants}
+    other = {v: path for v in kernels}
+    for k, file in enumerate(against, 1):
+        kernels[f"against{k}"] = variant_kernel("full", source, file)
+        other[f"against{k}"] = file
     _cuda.build_all(tuple(kernels.values()))
     want = engine.align_windows(cfg, maxw, *args)
+    B = int(args[4].shape[0])
     extra = dict.fromkeys(kernels, 0)
     if "clocks" in kernels:
         extra["clocks"] = WIDE_CLOCK_WORDS if source == WIDE else 3
+    words = {v: thread_pair_r_words(cfg, B) if other[v] and source ==
+             DEFAULT_SOURCE else 0 for v in kernels}
     same, cycles = {}, {}
     for v, k in kernels.items():
-        got, cyc = launch(k, cfg, maxw, args, extra[v])
+        got, cyc = launch(k, cfg, maxw, args, extra[v], words[v])
         same[v] = _same(got, want)
         cycles[v] = dict(cycles=cyc)
     samples = time_in_turns(
-        {(v, ""): (lambda k=k, e=extra[v]: launch(k, cfg, maxw, args, e))
+        {(v, ""): (lambda k=k, e=extra[v], n=words[v]:
+                   launch(k, cfg, maxw, args, e, n))
          for v, k in kernels.items()}, rounds, reps)
     return _rows(kernels, ("",), same, samples, cycles)
 
@@ -436,6 +499,7 @@ def main(argv=None) -> int:
     ap.add_argument("--source", default=DEFAULT_SOURCE, choices=SOURCES)
     ap.add_argument("--reads", type=int, default=None)
     ap.add_argument("--kernel_file", default=None)
+    ap.add_argument("--against", nargs="+", default=())
     ap.add_argument("--wko", type=int, nargs=3, default=None,
                     metavar=("W", "K", "O"))
     args = ap.parse_args(argv)
@@ -462,7 +526,7 @@ def main(argv=None) -> int:
         staged = kernel_time.stage_mapped(st.prepare_genome(ds.genome),
                                           ds.reads, cfg, dev)
         rows = measure(variants, staged, source=args.source,
-                       path=args.kernel_file)
+                       path=args.kernel_file, against=args.against)
         oracle = "the engine"
         where += f", {staged[3]} reads at W={W} K={K} O={O}"
         if args.kernel_file:

@@ -1,8 +1,12 @@
 """Reads with chained candidates (the true position and decoys at random
 positions) through ``align_reads``, held to the benchmark's plain NumPy
 reference, and the AlignStats counters that say what decoys add: the
-CIGAR runs returned and how full the one-thread-a-pair kernel's warps
-are. The card's case (marker ``cuda``) skips without one."""
+CIGAR runs returned, how much of the one-word kernel's passes of rows the
+windows needed (row work and row slots, summed over tiles and shards),
+and how full the one-thread-a-pair kernel's warps are. The card's case
+(marker ``cuda``) skips without one."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -44,10 +48,13 @@ def _check(mix, device):
     assert check.answers(out, range(len(rs.pairs))) == want
     assert stats.retried_pairs == 0
     assert stats.runs == int(ref.runs.sum())
-    w = ref.eds + ref.windows
-    assert stats.lane_work == int(w.sum())
-    # fewer than 32 lanes: one warp, at its slowest lane's pace
-    assert len(w) < 32 and stats.warp_work == len(w) * int(w.max())
+    # one word: a warp a pair, so no warp counters, and the row counters:
+    # a window's first hit lies at or below its traced edits, and it spans
+    # a pass of 32 rows at least
+    assert stats.lane_work == stats.warp_work == 0
+    assert stats.row_work >= int((ref.eds + ref.windows).sum())
+    assert 32 * int(ref.windows.sum()) <= stats.row_slots
+    assert stats.row_work <= stats.row_slots
     return stats
 
 
@@ -85,11 +92,33 @@ def test_a_failed_lane_counts_no_edits():
 
 
 def test_the_counters_survive_add():
-    a = AlignStats(num_pairs=5, runs=7, lane_work=11, warp_work=13)
-    b = AlignStats(num_pairs=3, runs=1, lane_work=2, warp_work=4)
+    a = AlignStats(num_pairs=5, runs=7, row_slots=64, row_work=9,
+                   lane_work=11, warp_work=13)
+    b = AlignStats(num_pairs=3, runs=1, row_slots=32, row_work=3,
+                   lane_work=2, warp_work=4)
     a.add(b)
     assert (a.num_pairs, a.runs, a.lane_work, a.warp_work) == (5, 8, 13, 17)
-    assert "runs=8 lane_work=13 warp_work=17" in a.breakdown()
+    assert (a.row_slots, a.row_work) == (96, 12)
+    assert ("runs=8 row_slots=96 row_work=12 lane_work=13 warp_work=17"
+            in a.breakdown())
+
+
+def test_row_counters_add_over_tiles_and_shards():
+    """A window's rows do not depend on its tile: ~280 pairs of 200 bp in
+    three tiles of 128 on two shards count what one tile on one device
+    counts."""
+    gen = generate.generator(2**31 + 13, "cpu")
+    genome, gcodes = generate.make_genome([100_000], gen, "cpu")
+    rs = generate.make_reads(genome, gcodes, 140, 200, 0.95, (6, 55, 39),
+                             1.0, gen)
+    assert len(rs.pairs) > 256
+    one_tile = dataclasses.replace(_config(), batch_tile=512)
+    _, one = st.align_reads(genome, rs.reads, one_tile, return_stats=True,
+                            device="cpu")
+    _, many = st.align_reads(genome, rs.reads, _config(), return_stats=True,
+                             device=["cpu", "cpu"])
+    assert 0 < one.row_work < one.row_slots
+    assert (many.row_slots, many.row_work) == (one.row_slots, one.row_work)
 
 
 @pytest.mark.cuda
@@ -98,8 +127,11 @@ def test_chained_mix_on_the_card(mix):
         pytest.skip("needs a CUDA device")
     kern = _cuda.GENASM_WINDOWS1
     before = kern.counts[1]
-    _check(mix, "cuda")
+    card = _check(mix, "cuda")
     assert kern.counts[1] == before + 1
+    # the kernel's row counters are the plain version's
+    cpu = _check(mix, "cpu")
+    assert (card.row_slots, card.row_work) == (cpu.row_slots, cpu.row_work)
 
 
 def test_the_cpu_route_builds_no_tokens_on_the_kernel(mix):

@@ -288,6 +288,59 @@ def test_w256_tiles_launch_the_wide_kernel(cuda, et):
                                       device="cpu")
 
 
+@pytest.mark.parametrize("et", [True, False], ids=["eton", "etoff"])
+@pytest.mark.parametrize("wko", [(16, 16, 9), (32, 32, 17), (64, 64, 33)],
+                         ids=lambda w: "-".join(map(str, w)))
+def test_one_word_kernel_matches_plain_on_chained_pairs(cuda, wko, et):
+    """The one-word kernel (a warp a pair) against plain on 600 pairs,
+    half true (5 % edits) and half decoys on unrelated text, as chained
+    candidates mix them: every output and the row counters."""
+    from torch_window_harness import ragged_batch
+
+    W, K, O = wko
+    cfg = st.AlignConfig(W=W, K=K, O=O, early_termination=et)
+    args = [a.to(cuda) for a in ragged_batch(W + 31, 600, 1600, 1400,
+                                             unrelated=300, rate=0.05)]
+    maxw = cfg.max_windows(int(args[4].max()))
+    got = engine.align_windows(cfg, maxw, *args)
+    want = engine.align_windows_plain(cfg, maxw, *args)
+    assert int((want.failed == 0).sum()) > 500
+    _same(got, want)
+    assert torch.equal(got.rows.cpu(), want.rows.cpu())
+    assert 0 < int(want.rows[1]) < int(want.rows[0])
+
+
+@pytest.mark.parametrize("et", [True, False], ids=["eton", "etoff"])
+@pytest.mark.parametrize("wko", [(32, 32, 17), (64, 64, 33)],
+                         ids=lambda w: "-".join(map(str, w)))
+def test_one_word_tiles_launch_only_the_one_word_kernel(cuda, wko, et):
+    """align_reads at W <= 64 in three tiles: one launch of
+    genasm_windows1.cu a tile at key 1 (257 without early termination)
+    and the token kernel's one a tile, nothing else; the alignments equal
+    the CPU's, and so do the row counters."""
+    from scrooge_tpu_torch import bench
+    from scrooge_tpu_torch.utils.simulate import simulate_dataset
+
+    W, K, O = wko
+    ds = simulate_dataset(genome_len=100_000, num_reads=300, read_len=600,
+                          accuracy=0.95, seed=W)
+    cfg = st.AlignConfig(W=W, K=K, O=O, batch_tile=128,
+                         early_termination=et)
+    key = engine.kernel_key(cfg)
+    assert key == (1 if et else 1 | engine.ET_OFF)
+    before = bench.launches()
+    got, stats = st.align_reads(ds.genome, ds.reads, cfg, device=cuda,
+                                return_stats=True)
+    assert bench.since(before) == {_cuda.GENASM_WINDOWS1.source: {key: 3},
+                                   _cuda.GENASM_TOKENS.source: {0: 3}}
+    want, cpu = st.align_reads(ds.genome, ds.reads, cfg, device="cpu",
+                               return_stats=True)
+    assert got == want
+    assert (stats.row_slots, stats.row_work) == (cpu.row_slots,
+                                                 cpu.row_work)
+    assert 0 < stats.row_work < stats.row_slots
+
+
 def test_one_word_kernel_refuses_wide_windows(cuda):
     """A refused launch raises and counts nothing: the entry point takes
     W <= 64 only and returns -1 before it reads any pointer."""

@@ -200,6 +200,52 @@ def test_window_kernel_follows_word_count(W):
                                      _cuda.GENASM_WINDOWS_WIDE)] == before
 
 
+@pytest.mark.parametrize("W", [16, 32, 64])
+def test_one_word_kernel_takes_no_scratch(W):
+    """At one word a warp runs a pair, with R and the forefront in its
+    shared memory: no device scratch, so a tile is one launch whatever
+    the budget, and an empty tile none."""
+    cfg = AlignConfig(W=W, K=W, O=W // 2 + 1)
+    assert engine.pairs_per_warp(cfg) == 1
+    assert engine.scratch_words(cfg, 1024) == (0, 0)
+    for budget in (0, 1, 10 ** 15):
+        assert engine.launch_chunks(cfg, 1024, budget) == [(0, 1024)]
+    assert engine.launch_chunks(cfg, 0, 0) == []
+
+
+@pytest.mark.parametrize("et, K, slots, work", [
+    # passes of 32 rows up to the one with the first hit; a window with
+    # no hit spans every row <= K
+    (True, 64, 32 + 32 + 64 + 64 + 65, 1 + 32 + 33 + 41 + 65),
+    (False, 64, 5 * 65, 1 + 32 + 33 + 41 + 65),
+    # K = 40 inside the second pass: it spans rows 32..40
+    (True, 40, 32 + 32 + 41 + 41 + 41, 1 + 32 + 33 + 41 + 41),
+])
+def test_row_counts_by_hand(et, K, slots, work):
+    """BatchResult.rows of five windows: first hits in rows 0, 31, 32 and
+    40, and one window with no hit."""
+    cfg = AlignConfig(W=64, K=K, O=33, early_termination=et)
+    wed = torch.tensor([0, 31, 32, 40, 0])
+    hit = torch.tensor([True, True, True, True, False])
+    assert engine.row_counts(cfg, wed, hit).tolist() == [slots, work]
+
+
+@pytest.mark.parametrize("source, name, want", [
+    ("genasm_windows1.cu", "ROWS", 32),
+    ("genasm_windows1.cu", "UNROLL", 16),
+    ("genasm_windows_wide.cu", "FF_PAD", engine.WIDE_FF_PAD),
+])
+def test_source_constant(source, name, want):
+    """A kernel's compile-time constants as the host reads them; the
+    one-word kernel's pass is the plain version's (engine.row_counts)."""
+    from scrooge_tpu_torch.ops import _cuda
+
+    assert _cuda.source_constant(source, name) == want
+    assert engine.WINDOWS1_ROWS == 32
+    with pytest.raises(ValueError, match="0 definitions of ROWS"):
+        _cuda.source_constant("genasm_windows_wide.cu", "ROWS")
+
+
 @pytest.mark.parametrize("wko", [(64, 64, 33), (128, 128, 65),
                                  (256, 256, 129)])
 def test_plain_engine_mapped_matches_xla_engine(wko):

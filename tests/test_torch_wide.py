@@ -152,10 +152,18 @@ def test_w2048_is_taken_and_w2049_refused():
 def test_launch_chunks(wko, per_warp):
     """Ranges cover the tile in order; each range's scratch fits the
     budget, and all but the last are whole warps of pairs. A warp holds
-    ``per_warp`` pairs at one thread a pair (W <= 192), or that many rows
-    of a pass of its one pair in the wide kernel (W >= 193), 32/G of
-    them."""
+    ``per_warp`` pairs at one thread a pair (W = 65..192), or that many
+    rows of a pass of its one pair in the wide kernel (W >= 193), 32/G of
+    them, and in the one-word kernel (W <= 64), whose R is in shared
+    memory: no scratch, one launch whatever the budget."""
     cfg = AlignConfig(W=wko[0], K=wko[1], O=wko[2])
+    if engine.num_words(cfg.W) == 1:
+        assert per_warp == engine.WINDOWS1_ROWS
+        assert engine.pairs_per_warp(cfg) == 1
+        assert engine.scratch_words(cfg, 1000) == (0, 0)
+        for budget in (0, 10 ** 15):
+            assert engine.launch_chunks(cfg, 1000, budget) == [(0, 1000)]
+        return
     wide = engine.num_words(cfg.W) > engine.MULTIWORD_MAX_NW
     if wide:
         assert per_warp == 32 // engine.group_size(cfg.W)

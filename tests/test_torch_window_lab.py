@@ -27,9 +27,25 @@ def test_variant_source_applies(variant):
     assert (got == src) == (variant == "full")
     # every edit adds to the source or swaps one constant; none drops a line
     assert len(got.splitlines()) >= len(src.splitlines())
+    assert "constexpr int ROWS = 32;" in got
+    unroll = 8 if variant == "u8" else 16
+    assert f"constexpr int UNROLL = {unroll};" in got
     if variant == "clocks":
+        # three section reads and the window's start; the sums after the
+        # row counters
         assert got.count("clock64()") == 4
-        assert "cy[2 * nb + b] = cyc[2];" in got
+        assert "P.rows[2 + 2 * nb + b] = (int64_t)cyc[2];" in got
+
+
+def test_thread_pair_r_words():
+    """The R scratch of the one-thread-a-pair version of the one-word
+    kernel, which ``--kernel_file`` and ``--against`` launch with the
+    parent's file: rows 0..K+1 of 32 columns, lanes in blocks of 32."""
+    from scrooge_tpu_torch.config import AlignConfig
+
+    cfg = AlignConfig(W=64, K=64, O=33)
+    assert window_lab.thread_pair_r_words(cfg, 1024) == 66 * 32 * 1024
+    assert window_lab.thread_pair_r_words(cfg, 33) == 66 * 32 * 64
 
 
 @pytest.mark.parametrize(
@@ -123,14 +139,15 @@ def test_wide_clocks_apply_to_the_first_version(tmp_path):
 
 def test_variant_anchor_must_match_once(monkeypatch):
     edits = window_lab.SOURCES[window_lab.DEFAULT_SOURCE][2]
-    monkeypatch.setitem(edits, "ch4",
-                        (("constexpr int CH = 7;", "constexpr int CH = 4;"),))
+    monkeypatch.setitem(
+        edits, "u4", (("constexpr int UNROLL = 7;",
+                       "constexpr int UNROLL = 4;"),))
     with pytest.raises(ValueError, match="occurs 0 times"):
-        window_lab.variant_source("ch4")
+        window_lab.variant_source("u4")
     with pytest.raises(ValueError, match="is not one of"):
         window_lab.variant_source("nostore")
     with pytest.raises(ValueError, match="is not one of"):
-        window_lab.variant_source("ch4", "genasm_windows.cu")
+        window_lab.variant_source("u4", "genasm_windows.cu")
     with pytest.raises(ValueError, match="is not one of"):
         window_lab.variant_source("full", "genasm_no_such_kernel.cu")
     with pytest.raises(ValueError, match="is not one of"):

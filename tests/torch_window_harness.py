@@ -34,9 +34,10 @@ FLAGS = ("-std=c++17", "-O1", "-g", "-Wall", "-Wextra", "-Werror",
 
 
 def build_harness(tmp_path_factory, name: str) -> str:
-    """``tests/<name>.cpp`` built once per content (its own, and that of
-    every file under csrc/) under BUILD_DIR/<name>/, or a skip where g++
-    cannot link and run a sanitized program."""
+    """``tests/<name>.cpp`` built once per content (its own, that of
+    tests/warp_host.h and that of every file under csrc/) under
+    BUILD_DIR/<name>/, or a skip where g++ cannot link and run a sanitized
+    program."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -51,7 +52,7 @@ def build_harness(tmp_path_factory, name: str) -> str:
                     + proc.stderr.strip()[-200:])
     harness = os.path.join(TESTS, f"{name}.cpp")
     h = hashlib.sha256("\0".join(FLAGS).encode())
-    for path in [harness] + sorted(
+    for path in [harness, os.path.join(TESTS, "warp_host.h")] + sorted(
             os.path.join(_cuda.CSRC, f) for f in os.listdir(_cuda.CSRC)):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -141,19 +142,27 @@ def run_harness(exe, cfg, maxw, tw, base, tlen, pw, plen):
     assert proc.returncode == 0, proc.stderr.decode(errors="replace")[-4000:]
     NE = engine.entry_rows(cfg)
     sizes = [4 * B, 4 * B, 2 * maxw * NE * B, 4 * maxw * B]
+    types = [np.int32, np.int32, np.int16, np.int32]
+    if engine.num_words(cfg.W) == 1 and "windows_host" in exe:
+        sizes.append(16)  # the one-word kernel's row counters
+        types.append(np.int64)
     assert len(proc.stdout) == sum(sizes)
     out, at = [], 0
-    for n, dt in zip(sizes, (np.int32, np.int32, np.int16, np.int32)):
+    for n, dt in zip(sizes, types):
         out.append(torch.from_numpy(np.frombuffer(proc.stdout[at: at + n],
                                                   dt).copy()))
         at += n
-    ed, failed, entries, counts = out
+    ed, failed, entries, counts = out[:4]
     return engine.BatchResult(ed, failed, entries.view(maxw, NE, B),
-                              counts.view(maxw, B))
+                              counts.view(maxw, B),
+                              rows=out[4] if len(out) > 4 else None)
 
 
 def assert_same(got, want):
-    """ed, failed and counts, then the runs after compaction."""
+    """ed, failed and counts, then the runs after compaction; the row
+    counters where the harness returns them."""
+    if got.rows is not None:
+        assert torch.equal(got.rows, want.rows)
     assert torch.equal(got.edit_distance, want.edit_distance)
     assert torch.equal(got.failed, want.failed)
     assert torch.equal(got.counts, want.counts)

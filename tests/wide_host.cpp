@@ -3,11 +3,10 @@
 // tests/test_torch_wide_host.py with g++ under AddressSanitizer and UBSan
 // (g++ -I scrooge_tpu_torch/csrc).
 //
-// The shim below stands in for the card's warp primitives: a HostLanes
-// holds the value of each of the 32 threads of a warp (32/G sub-groups of
-// G, the rows of a pass), the kernel's FOR_THREADS loops run its body for
-// t = 0..31 in turn, and shfl_up64, shfl_up and ballot read the whole
-// array, so the threads run in lockstep. The R and forefront scratch start
+// tests/warp_host.h stands in for the card's warp primitives
+// (csrc/warp_lanes.cuh), and the shim below for the wide kernel's own
+// (shfl_up within groups of G, the rows of a pass), so the 32 threads of
+// a warp run in lockstep. The R and forefront scratch start
 // filled with a garbage pattern, and counts with -7, so that a read of a
 // word the kernel did not write, or a count it did not write, shows in the
 // output.
@@ -23,28 +22,7 @@
 #include <cstdio>
 #include <vector>
 
-template <class T, int N>
-struct HostLanes {
-  T v[N];
-  T& operator[](int t) { return v[t]; }
-  const T& operator[](int t) const { return v[t]; }
-};
-
-struct HostWarp {
-  int t_lo, t_hi;  // every thread of the warp: [0, 32)
-};
-
-using U32Lanes = HostLanes<unsigned, 32>;
-using U64Lanes = HostLanes<uint64_t, 32>;
-
-// __shfl_up_sync(mask, x, DELTA): thread t gets thread t-DELTA's x, a
-// thread t < DELTA its own
-template <int DELTA>
-inline U64Lanes shfl_up64(const HostWarp&, const U64Lanes& x) {
-  U64Lanes r;
-  for (int t = 0; t < 32; ++t) r[t] = x[t >= DELTA ? t - DELTA : t];
-  return r;
-}
+#include "warp_host.h"
 
 // __shfl_up_sync(mask, x, 1, G): thread t gets thread t-1's x within its
 // group of G, the group's first thread its own
@@ -55,17 +33,8 @@ inline U32Lanes shfl_up(const HostWarp&, const U32Lanes& x) {
   return r;
 }
 
-// __ballot_sync(mask, p): bit t is thread t's p
-inline unsigned ballot(const HostWarp&, const HostLanes<bool, 32>& p) {
-  unsigned r = 0;
-  for (int t = 0; t < 32; ++t) r |= (p[t] ? 1u : 0u) << t;
-  return r;
-}
-
-inline void warp_sync(const HostWarp&) {}
 inline uint32_t load_ro(const uint32_t* p) { return *p; }
 inline void store_r(uint64_t* p, uint64_t v) { *p = v; }
-inline int first_set(unsigned x) { return __builtin_ffs((int)x); }
 
 inline uint64_t brev64(uint64_t x) {
   uint64_t r = 0;
@@ -77,6 +46,7 @@ inline uint32_t funnel_r(uint32_t lo, uint32_t hi, unsigned sh) {
   return (uint32_t)(((((uint64_t)hi) << 32) | lo) >> (sh & 31u));
 }
 
+#include "warp_lanes.cuh"
 #include "genasm_windows_wide.cu"
 
 static_assert(WARP == 32, "the shim emulates 32-thread warps");
